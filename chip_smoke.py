@@ -8,13 +8,15 @@ From the root of a checkout, on a host with one H100:
 1. prints the card (nvidia-smi name and power limit, torch's device name);
 2. builds the probe kernels from tpudash_torch/ops/csrc (one nvcc per
    source, started together) and prints the build time;
-3. holds each kernel against its plain PyTorch version on the card;
+3. holds each kernel against its plain PyTorch version on the card, the
+   copy kernel exactly at the edges of its launch plan;
 4. drives the exporter's main path: TorchProbeSource at the exporter's
    default sizes, then the exporter app serving /metrics and /healthz;
 5. drives the probe bench's path: the matmul, read and copy probes at the
    probe bench's arguments;
 6. times each kernel at the main path's shapes beside its bound, its plain
-   version and one PyTorch call computing the same function;
+   version and one PyTorch call computing the same function, and the host
+   time of one wrapper call;
 7. prints a {"kernels": [...]} line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -112,6 +114,36 @@ def device_ms(fn, n: int = 20) -> "float | None":
     return total_us / n / 1e3 if total_us > 0 else None
 
 
+def host_us(fn, n: int = 200, reps: int = 5) -> float:
+    """Median host µs per call of ``fn`` while the card works through the
+    queue: ``n`` calls stay far below the launch queue's depth, so the host
+    clock measures the wrapper and the enqueue, not the kernel."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def copy_edge_sizes(plan) -> list[tuple[int, str]]:
+    """f32 counts, each with its label, at the edges of the cut that the
+    copy kernel's ``plan`` (for a large buffer) makes."""
+    t = plan.tile_bytes // 4
+    return [
+        (t, "one tile"), (t + 4, "one tile + 4 floats"), (t - 100, "less than one tile"),
+        (3 * t + 1, "n % 4 == 1"), (3 * t + 2, "n % 4 == 2"), (3 * t + 3, "n % 4 == 3"),
+        (1, "one float"), (3, "floats only"),
+        ((3 * plan.grid + 7) * t, "whole tiles, not whole rounds of the grid"),
+    ]
+
+
 def main() -> int:
     if not (ROOT / "tpudash_torch" / "ops" / "csrc").is_dir():
         print(f"chip_smoke: no tpudash_torch/ beside {__file__}: run it from a "
@@ -185,13 +217,39 @@ def main() -> int:
     check(loop == 8.0 * rows * 44, f"hbm_read loop on ones: {loop} != {8.0 * rows * 44}")
     print(f"hbm_read vs plain, ones {tuple(x_full.shape)}: exact; 44-pass loop = {loop} exact")
 
-    for shape in ((rows, cols), (999, 4101)):
+    sms = kernels._sm_count(dev.index)
+    plan = kernels._copy_plan(rows * cols, sms)
+    print(f"hbm_copy plan at {rows}x{cols} on {sms} SMs: grid {plan.grid} "
+          f"({kernels.COPY_CTAS_PER_SM} CTAs per SM), {plan.stages} stages x {plan.tile_bytes} B "
+          f"tiles = {plan.smem_bytes} B dynamic shared memory per CTA, {plan.n_tiles} tiles, "
+          f"tail {plan.tail_bytes} B + {plan.tail_floats} floats")
+    copy_shapes = [((rows, cols), "main shape"), ((999, 4101), "ragged")]
+    copy_shapes += [((m,), label) for m, label in copy_edge_sizes(plan)]
+    for shape, label in copy_shapes:
         x = torch.randn(shape, generator=gen_rng, device=dev)
-        got = kernels.hbm_copy(x)
-        check(torch.equal(got, kernels.copy_ref(x)), f"hbm_copy {shape}: not exact")
+        n = x.numel()
+        # the destination lies at the start of a larger buffer, whose bytes
+        # past n must come through untouched
+        guard = torch.full((n + 64,), -7.0, device=dev)
+        got = kernels.hbm_copy(x, guard[:n].view(shape))
+        check(torch.equal(got, kernels.copy_ref(x)), f"hbm_copy {label} {shape}: not exact")
+        check(bool((guard[n:] == -7.0).all()), f"hbm_copy {label} {shape}: wrote past its end")
+        p = kernels._copy_plan(n, sms)
+        print(f"hbm_copy vs plain, random {shape} ({label}; grid {p.grid}, {p.n_tiles} tiles, "
+              f"tail {p.tail_bytes} B + {p.tail_floats} floats): exact, nothing written past n")
     check(probes._hbm_copy_loop(x_full, 5).item() == 8.0, "hbm_copy loop on ones != 8")
     torch.cuda.synchronize()
-    print("hbm_copy vs plain, random (8192, 8192) and (999, 4101): exact; 5-pass loop = 8.0")
+    print("hbm_copy 5-pass loop on ones = 8.0")
+    # the C entry owns the ring's limit: a ring past a block's shared memory
+    # is refused before launch, and the wrapper's path raises
+    too_big = plan._replace(stages=8, tile_bytes=32 * 1024)
+    try:
+        kernels.HBM_COPY.launch(dev, x_full.data_ptr(), torch.empty_like(x_full).data_ptr(),
+                                *too_big)
+    except RuntimeError as e:
+        print(f"hbm_copy ring of {too_big.smem_bytes} B: refused ({e})")
+    else:
+        raise SmokeFailure(f"hbm_copy launched a ring of {too_big.smem_bytes} B")
 
     # the matmul chain (torch.matmul, no hand kernel) against float64 on the host
     size, iters = 256, 2
@@ -302,6 +360,8 @@ def main() -> int:
     read_t, copy_t = cuda_ms(read_fns), cuda_ms(copy_fns)
     read_dev = {name: device_ms(fn) for name, fn in read_fns.items()}
     copy_dev = {name: device_ms(fn) for name, fn in copy_fns.items()}
+    read_host = {name: host_us(read_fns[name]) for name in ("kernel", "library")}
+    copy_host = {name: host_us(copy_fns[name]) for name in ("kernel", "library")}
     f32_peak = F32_PEAK_TFLOPS[gen.name]
 
     def bound(nbytes: int, ops: int) -> tuple[float, str]:
@@ -316,12 +376,12 @@ def main() -> int:
          "replaces": "tpudash/ops/probes.py:160", "launches": main_counts["hbm_read"],
          "max_abs_err": read_err, "ms": read_t["kernel"], "plain_ms": read_t["plain"],
          "bound_ms": read_bound, "bound_by": read_by, "library_ms": read_t["library"],
-         "device_ms": read_dev, "path": "exporter main path"},
+         "device_ms": read_dev, "host_us": read_host, "path": "exporter main path"},
         {"name": "hbm_copy", "route": "cuda", "source": "tpudash_torch/ops/csrc/hbm_copy.cu",
          "replaces": "tpudash/ops/probes.py:196", "launches": bench_counts["hbm_copy"],
          "max_abs_err": 0.0, "ms": copy_t["kernel"], "plain_ms": copy_t["plain"],
          "bound_ms": copy_bound, "bound_by": copy_by, "library_ms": copy_t["library"],
-         "device_ms": copy_dev, "path": "probe bench path"},
+         "device_ms": copy_dev, "host_us": copy_host, "path": "probe bench path"},
     ]
     def us(v):
         return "not measured" if v is None else f"{v * 1e3:.2f} us"
@@ -333,6 +393,11 @@ def main() -> int:
               f"{100 * e['bound_ms'] / e['ms']:.2f} % of bound), plain {e['plain_ms'] * 1e3:.2f} us, "
               f"library {e['library_ms'] * 1e3:.2f} us; device time (profiler) kernel "
               f"{us(dev_t['kernel'])}, plain {us(dev_t['plain'])}, library {us(dev_t['library'])}")
+        ratio_dev = (f"{dev_t['kernel'] / dev_t['library']:.4f}"
+                     if dev_t["kernel"] and dev_t["library"] else "not measured")
+        print(f"  {e['name']}: kernel / library {e['ms'] / e['library_ms']:.4f} (events), "
+              f"{ratio_dev} (profiler); host per call: wrapper {e['host_us']['kernel']:.2f} us, "
+              f"library {e['host_us']['library']:.2f} us")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     # -- 7. result ---------------------------------------------------------------

@@ -9,7 +9,9 @@ chip_smoke.py.
 """
 
 import ast
+import math
 import pathlib
+import random
 
 import jax
 import jax.numpy as jnp
@@ -101,6 +103,63 @@ def test_hbm_copy_writes_out_and_matches_plain():
     fresh = kernels.hbm_copy(x)
     assert torch.equal(fresh, kernels.copy_ref(x))
     assert fresh.data_ptr() != x.data_ptr()
+
+
+# --- the copy kernel's launch plan ------------------------------------------------
+
+_TILE_FLOATS = kernels.COPY_TILE_BYTES // 4
+
+
+def _plan_ranges(plan: kernels.CopyPlan) -> list[tuple[int, int]]:
+    """The byte ranges the copy kernel moves under ``plan``, CTA by CTA as
+    csrc/hbm_copy.cu walks them (CTA b takes items b, b + grid, ...; item
+    n_tiles is the short bulk tail), then the float tail."""
+    n_items = plan.n_tiles + (plan.tail_bytes > 0)
+    ranges = []
+    for b in range(plan.grid):
+        for item in range(b, n_items, plan.grid):
+            size = plan.tile_bytes if item < plan.n_tiles else plan.tail_bytes
+            assert size > 0 and size % 16 == 0
+            assert item * plan.tile_bytes % 16 == 0
+            ranges.append((item * plan.tile_bytes, size))
+    body = plan.n_tiles * plan.tile_bytes + plan.tail_bytes
+    ranges += [(body + 4 * i, 4) for i in range(plan.tail_floats)]
+    return ranges
+
+
+_GRID_132 = 132 * kernels.COPY_CTAS_PER_SM
+#: sizes at the edges of the cut, then a fixed sample spread evenly in log(n)
+#: over [1, 4e6]
+_PLAN_SIZES = [
+    1, 3, 4, 5, _TILE_FLOATS - 100, _TILE_FLOATS, _TILE_FLOATS + 4,
+    3 * _TILE_FLOATS + 1, 3 * _TILE_FLOATS + 2, 3 * _TILE_FLOATS + 3,
+    _GRID_132 * _TILE_FLOATS, (3 * _GRID_132 + 7) * _TILE_FLOATS, 4_000_000,
+]
+_rng = random.Random(0)
+_PLAN_SIZES += sorted(int(math.exp(_rng.uniform(0.0, math.log(4e6)))) for _ in range(24))
+
+
+@pytest.mark.parametrize("sms", [1, 114, 132])
+@pytest.mark.parametrize("n", _PLAN_SIZES)
+def test_copy_plan_covers_every_byte_once(sms, n):
+    plan = kernels._copy_plan(n, sms)
+    assert plan.tile_bytes % 16 == 0 and plan.tail_bytes % 16 == 0
+    assert 0 <= plan.tail_bytes < plan.tile_bytes and plan.tail_floats == n % 4
+    assert plan.stages >= 2 and plan.smem_bytes <= 232_448
+    n_items = plan.n_tiles + (plan.tail_bytes > 0)
+    assert 1 <= plan.grid <= sms * kernels.COPY_CTAS_PER_SM
+    assert plan.grid <= max(1, n_items)  # no CTA without work
+    pos = 0
+    for start, size in sorted(_plan_ranges(plan)):
+        assert start == pos  # no gap, no byte twice
+        pos += size
+    assert pos == 4 * n
+
+
+@pytest.mark.parametrize("args", [(-1, 132), (10, 0), (10, -3)])
+def test_copy_plan_refuses_what_the_kernel_cannot_run(args):
+    with pytest.raises(ValueError):
+        kernels._copy_plan(*args)
 
 
 # --- wrapper contracts -----------------------------------------------------------
@@ -281,7 +340,9 @@ def test_default_device_raises_without_a_gpu(monkeypatch):
 # --- the port imports no JAX and nothing of the JAX package --------------------
 
 def _port_files():
-    return sorted((REPO / "tpudash_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted((REPO / "tpudash_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tools" / "copy_sweep.py",
+    ]
 
 
 def _forbidden_imports(path: pathlib.Path) -> list[str]:

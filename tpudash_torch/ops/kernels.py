@@ -5,7 +5,8 @@ Two kernels, one CUDA C++ source each under ``csrc/``:
 - ``hbm_read`` (``csrc/hbm_read.cu``) replaces the Pallas
   ``_hbm_read_kernel``: ``out(1, cols) = prev + Σ_rows x``.
 - ``hbm_copy`` (``csrc/hbm_copy.cu``) replaces the Pallas ``_copy_kernel``:
-  a copy of the buffer.
+  a copy of the buffer, through a persistent grid of bulk-copy (TMA) rings;
+  :func:`_copy_plan` cuts the buffer for it.
 
 Build: the first time a kernel is asked for on a CUDA tensor, ``nvcc``
 compiles its source for ``sm_90a`` into a shared library with a plain C
@@ -24,6 +25,7 @@ There is no fallback from the card to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,6 +33,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -133,7 +136,9 @@ HBM_READ = CudaKernel(
 )
 HBM_COPY = CudaKernel(
     "hbm_copy", "hbm_copy.cu", "tpudash_hbm_copy",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong],
+    # src, dst, then a CopyPlan: grid, tile_bytes, stages, n_tiles, tail_bytes, tail_floats
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
 )
 KERNELS: tuple[CudaKernel, ...] = (HBM_READ, HBM_COPY)
 
@@ -236,6 +241,49 @@ def hbm_read_pass(
 
 # --- hbm_copy ----------------------------------------------------------------
 
+#: the copy's persistent grid: CTAs per SM, ring stages per CTA, bytes per
+#: stage.  csrc/hbm_copy.cu refuses a ring larger than a block may take.
+COPY_CTAS_PER_SM = 2
+COPY_STAGES = 3
+COPY_TILE_BYTES = 32 * 1024
+
+
+class CopyPlan(NamedTuple):
+    """How the copy kernel cuts ``n`` f32 values: ``n_tiles`` tiles of
+    ``tile_bytes``, then one bulk item of ``tail_bytes`` (a multiple of 16,
+    possibly 0), then ``tail_floats`` (``n % 4``) single floats; ``grid``
+    CTAs each run a ring of ``stages`` tiles, CTA ``b`` taking items ``b,
+    b + grid, ...``."""
+
+    grid: int
+    tile_bytes: int
+    stages: int
+    n_tiles: int
+    tail_bytes: int
+    tail_floats: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one CTA: its ring."""
+        return self.stages * self.tile_bytes
+
+
+@functools.lru_cache(maxsize=256)
+def _copy_plan(n: int, sms: int) -> CopyPlan:
+    """The copy kernel's launch for ``n`` f32 values on a card of ``sms`` SMs."""
+    if n < 0 or sms < 1:
+        raise ValueError(f"no copy plan for n={n} on {sms} SMs")
+    n_tiles, tail_bytes = divmod(n // 4 * 16, COPY_TILE_BYTES)
+    items = n_tiles + (tail_bytes > 0)
+    grid = max(1, min(sms * COPY_CTAS_PER_SM, items))
+    return CopyPlan(grid, COPY_TILE_BYTES, COPY_STAGES, n_tiles, tail_bytes, n % 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def copy_ref(x: torch.Tensor, out: "torch.Tensor | None" = None) -> torch.Tensor:
     """Plain version of one copy pass: torch's own copy."""
     if out is None:
@@ -268,5 +316,6 @@ def hbm_copy(x: torch.Tensor, out: "torch.Tensor | None" = None) -> torch.Tensor
         out = torch.empty_like(x)
     _check_card_tensor(out, "out")
     if x.numel():
-        HBM_COPY.launch(x.device, x.data_ptr(), out.data_ptr(), x.numel())
+        plan = _copy_plan(x.numel(), _sm_count(x.device.index))
+        HBM_COPY.launch(x.device, x.data_ptr(), out.data_ptr(), *plan)
     return out
