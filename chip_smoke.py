@@ -14,10 +14,17 @@ From the root of a checkout, on a host with one H100:
    default sizes, then the exporter app serving /metrics and /healthz;
 5. drives the probe bench's path: the matmul, read and copy probes at the
    probe bench's arguments;
-6. times each kernel at the main path's shapes beside its bound, its plain
+6. drives the inter-GPU probes: a rehearsal over [cuda:0, cuda:0] always
+   (its rates are one card's device-to-device copy rates, not an
+   interconnect's), and the real run over every GPU when there are several;
+7. drives the training path at the workload source's full defaults on
+   cuda:0: the card's loss against the CPU's on one sequence, the loss at
+   init, TorchWorkloadSource training until 3 syncs with falling loss, step
+   time, TFLOP/s and peak memory, and the exporter serving the workload;
+8. times each kernel at the main path's shapes beside its bound, its plain
    version and one PyTorch call computing the same function, and the host
    time of one wrapper call;
-7. prints a {"kernels": [...]} line, and last
+9. prints a {"kernels": [...]} line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Launch counts are reset just before each path and read just after it.  Any
@@ -142,6 +149,269 @@ def copy_edge_sizes(plan) -> list[tuple[int, str]]:
         (1, "one float"), (3, "floats only"),
         ((3 * plan.grid + 7) * t, "whole tiles, not whole rounds of the grid"),
     ]
+
+
+def ici_phase(devices: list, card: str, gen, label: str) -> None:
+    """TorchProbeSource over ``devices`` at probe_ici_mb=16: every ICI
+    series present, finite and above 0 for every slot, and both link series
+    equal to (tx + rev)·1e9, the reference's behaviour."""
+    from tpudash_torch.config import Config
+    from tpudash_torch.parallel import collectives
+    from tpudash_torch.schema import ICI_LINK_SERIES, ICI_RX, ICI_TX
+    from tpudash_torch.sources.probe import TorchProbeSource
+
+    import torch
+
+    from tpudash_torch.ops.probes import _MIN_DELTA_S
+
+    # what the collectives move, on these devices with their streams: slot
+    # i holds the number i; k ring steps leave slot i holding i − k·step
+    n = len(devices)
+    shards = [torch.full((8, 1024), float(i), device=d) for i, d in enumerate(devices)]
+    bufs = tuple([torch.empty_like(x) for x in shards] for _ in range(2))
+    for k, reverse in ((1, False), (3, False), (3, True)):
+        out = collectives._ring(shards, bufs, k, reverse)
+        torch.cuda.synchronize()
+        step = -1 if reverse else 1
+        for i, o in enumerate(out):
+            check(bool((o == float((i - k * step) % n)).all()),
+                  f"ring k={k} reverse={reverse}: slot {i} holds {o[0, 0].item()}")
+    outs = [torch.full((n * 8, 1024), -1.0, device=d) for d in devices]
+    collectives._all_gather(shards, outs)
+    torch.cuda.synchronize()
+    check(all(torch.equal(o.cpu(), torch.cat([x.cpu() for x in shards])) for o in outs),
+          "all-gather: a slot does not hold every shard in order")
+
+    results: dict = {}
+    probes = {name: getattr(collectives, name) for name in
+              ("ppermute_ring_bandwidth_probe", "all_gather_bandwidth_probe")}
+
+    def recording(name):
+        def probe(*args, **kwargs):  # keeps each probe's result
+            r = probes[name](*args, **kwargs)
+            results[(name, r.detail.get("reverse"))] = r
+            return r
+        return probe
+
+    for name in probes:
+        setattr(collectives, name, recording(name))
+    try:
+        t0 = time.perf_counter()
+        src = TorchProbeSource(Config(source="probe", extra={"probe_ici_mb": 16}), devices=devices)
+        samples = src.fetch()
+        fetch_s = time.perf_counter() - t0
+    finally:
+        for name, fn in probes.items():
+            setattr(collectives, name, fn)
+    for key, r in results.items():
+        check(r.elapsed_s > _MIN_DELTA_S, f"{key}: the paired delta hit its {_MIN_DELTA_S} s "
+              "floor, so the rate is not a measurement")
+    rings = {rev: r for (name, rev), r in results.items() if name.startswith("ppermute")}
+    xp, xn = ICI_LINK_SERIES["xp"], ICI_LINK_SERIES["xn"]
+    tx, rev = rings[False].value, rings[True].value
+    for i in range(len(devices)):
+        got = {s.metric: s.value for s in samples if s.chip.chip_id == i}
+        for m in (ICI_TX, ICI_RX, xp, xn):
+            check(m in got and math.isfinite(got[m]) and got[m] > 0, f"slot {i}: {m} = {got.get(m)}")
+        check(got[ICI_TX] == tx * 1e9, f"slot {i}: tx {got[ICI_TX]} != {tx * 1e9}")
+        check(got[xp] == got[xn] == (tx + rev) * 1e9, f"slot {i}: xp {got[xp]}, xn {got[xn]}, "
+              f"(tx + rev)·1e9 = {(tx + rev) * 1e9}")
+    rx = results[("all_gather_bandwidth_probe", None)].value
+    check(src._cache["ici_rx"] == rx * 1e9, "ici_rx is not the all-gather's rate")
+    for what, v in (("ring", tx), ("reverse ring", rev), ("all-gather", rx)):
+        check(v <= MAX_SHARE_OF_PEAK * gen.hbm_gbps, f"{what} {v} GB/s above the memory peak")
+    print(f"inter-GPU probes over {len(devices)} slots ({label}) [{card}]: fetch {fetch_s:.2f} s; "
+          f"ring {tx:.2f} GB/s, reverse ring {rev:.2f} GB/s, all-gather {rx:.2f} GB/s per slot "
+          f"(16 MiB shards; paired deltas {', '.join(f'{r.elapsed_s * 1e6:.1f}' for r in results.values())} us); "
+          f"ring and all-gather move the right shards; every ICI series present and > 0 for "
+          f"every slot, xp == xn == (tx + rev)·1e9")
+
+
+def training_phase(dev, card: str, gen) -> None:
+    """The workload source's training path at its full defaults on ``dev``."""
+    import torch
+
+    from tpudash_torch.config import Config
+    from tpudash_torch.exporter.server import WARMUP_TASK, make_app
+    from tpudash_torch.models import workload as W
+    from tpudash_torch.schema import HBM_TOTAL, HBM_USED, TENSORCORE_UTIL
+    from tpudash_torch.sources.workload import (
+        WORKLOAD_LOSS,
+        WORKLOAD_STEPS_PER_S,
+        WORKLOAD_TFLOPS,
+        TorchWorkloadSource,
+    )
+
+    src = TorchWorkloadSource(Config(source="workload"), device=dev)
+    cfg = src.runner.cfg
+    check(cfg == W.WorkloadConfig(vocab=2048, d_model=1024, n_heads=16, n_layers=8, d_ff=4096,
+                                  seq=512, batch=16), f"workload defaults {cfg}")
+    flops = W.flops_per_step(cfg)
+
+    # (a) the card's loss on one sequence against the port's own CPU forward
+    # on the same parameters and tokens.  Tolerance as in
+    # tests/test_torch_workload.py: 2^-10 of the loss, and 4 bf16 units of
+    # the logit scale for the logits (bf16 rounds at the same points on both;
+    # only the order of the sums differs).
+    gen_t = torch.Generator(device=dev).manual_seed(SEED)
+    params = W.init_params(cfg, gen_t)
+    print(f"training path: {cfg}; flops_per_step {flops / 1e12:.4f} TFLOP; "
+          f"{sum(p.numel() for p in W.leaves(params))} parameters")
+    seq = torch.randint(0, cfg.vocab, (1, cfg.seq), generator=gen_t, device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits_gpu = W.forward(params, seq[:, :-1], cfg).cpu()
+        loss_gpu = W.loss_fn(params, seq, cfg).item()
+        cpu_params = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+                      for k, v in params.items()}
+        t1 = time.perf_counter()
+        logits_cpu = W.forward(cpu_params, seq[:, :-1].cpu(), cfg)
+        loss_cpu = W.loss_fn(cpu_params, seq.cpu(), cfg).item()
+        cpu_s = time.perf_counter() - t1
+    logit_err = (logits_gpu - logits_cpu).abs().max().item()
+    logit_tol = 4 * 2.0**-8 * logits_cpu.abs().max().item()
+    loss_tol = 2.0**-10 * loss_cpu
+    check(math.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= loss_tol,
+          f"loss on the card {loss_gpu} vs the CPU {loss_cpu} (tol {loss_tol})")
+    check(logit_err <= logit_tol, f"logits: max err {logit_err} above {logit_tol}")
+    print(f"(a) parity, batch 1 x {cfg.seq}: loss card {loss_gpu:.6f} vs CPU {loss_cpu:.6f} "
+          f"(|diff| {abs(loss_gpu - loss_cpu):.3e}, tol {loss_tol:.3e}); logits max err "
+          f"{logit_err:.3e} (tol {logit_tol:.3e}); CPU forward {cpu_s:.1f} s, whole check "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) loss at init near uniform over the vocabulary.  The bound is the
+    # reference's own test's (tests/test_models.py): with unit-RMS features
+    # and an unembed of scale d**-0.5 the logits have std ~1, which puts the
+    # expected loss at init near ln(vocab) + 0.5 (the reference gives 8.106,
+    # ln 2048 + 0.48, at these defaults on the CPU)
+    batch = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=gen_t, device=dev)
+    with torch.no_grad():
+        loss_init = W.loss_fn(params, batch, cfg).item()
+    check(abs(loss_init - math.log(cfg.vocab)) < 1.0,
+          f"loss at init {loss_init} vs ln {cfg.vocab} = {math.log(cfg.vocab)}")
+    print(f"(b) loss at init, batch {cfg.batch}: {loss_init:.4f} (ln {cfg.vocab} = "
+          f"{math.log(cfg.vocab):.4f})")
+    del params, cpu_params, logits_gpu, logits_cpu
+
+    # (c) the source trains in the background until 3 syncs of 8 steps
+    sync = src.runner.steps_per_sync
+    t0 = time.perf_counter()
+    losses = []
+    try:
+        src.fetch()  # starts the runner
+        deadline = time.monotonic() + 300
+        while src.runner.steps < 3 * sync:
+            check(time.monotonic() < deadline, f"runner stalled at {src.runner.steps} steps")
+            check(src.runner.error is None, f"runner: {src.runner.error}")
+            if src.runner.steps and (not losses or losses[-1][0] != src.runner.steps):
+                losses.append((src.runner.steps, src.runner.loss))
+            time.sleep(0.01)
+        samples = {s.metric: s.value for s in src.fetch()}
+        m = src.runner.metrics()
+        train_s = time.perf_counter() - t0
+    finally:
+        src.close()
+    losses.append((m["steps"], m["loss"]))
+    total = torch.cuda.get_device_properties(dev).total_memory
+    check(0 < samples[TENSORCORE_UTIL] <= 100, f"util {samples[TENSORCORE_UTIL]}")
+    check(samples[HBM_USED] > 0, f"HBM used {samples[HBM_USED]}")
+    check(samples[HBM_TOTAL] == total, f"HBM total {samples[HBM_TOTAL]} != {total}")
+    check(m["loss"] < loss_init, f"loss did not fall: {loss_init} at init, {m['loss']} at "
+          f"step {m['steps']}")
+    ema_s = 1.0 / m["steps_per_second"]
+    print(f"(c) TorchWorkloadSource trained {m['steps']} steps in {train_s:.1f} s (init and "
+          f"the first step's set-up included); loss by sync {[(k, round(v, 4)) for k, v in losses]}, "
+          f"fell from {loss_init:.4f} at init")
+    print(f"  [{card}]: step time (runner EMA) {ema_s * 1e3:.2f} ms; achieved "
+          f"{m['achieved_tflops']:.2f} TFLOP/s ({100 * m['achieved_tflops'] / gen.peak_bf16_tflops:.2f} % "
+          f"of {gen.peak_bf16_tflops} TFLOP/s); exported util {samples[TENSORCORE_UTIL]:.4f} %, "
+          f"HBM used {samples[HBM_USED]:.0f} B of {samples[HBM_TOTAL]:.0f} B")
+
+    # step time by CUDA events, peak memory and the device's busy share, on
+    # a train state of the same defaults built here (the runner's is gone)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    params, opt = W.make_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    for _ in range(2):
+        W.train_step(params, opt, batch, cfg)
+    n = 10
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        W.train_step(params, opt, batch, cfg)
+    issue_ms = (time.perf_counter() - t0) / n * 1e3  # host time to issue a step
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / n
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy, top, launches = profile_steps(lambda: W.train_step(params, opt, batch, cfg), 3)
+    del params, opt
+    print(f"  [{card}]: step time (CUDA events, {n} steps) {step_ms:.3f} ms = "
+          f"{flops / step_ms / 1e9:.2f} TFLOP/s counted "
+          f"({100 * flops / step_ms / 1e9 / gen.peak_bf16_tflops:.2f} % of {gen.peak_bf16_tflops}); "
+          f"peak max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB; {peak - base} B above "
+          f"the {base} B the script held before the train state)")
+    print(f"  host time to issue one step (no readback inside the 10): {issue_ms:.3f} ms")
+    if busy is None:
+        print("  device busy share: not measured (the profiler recorded no device time)")
+    else:
+        print(f"  device busy share over 3 steps (profiler): {100 * busy:.2f} %; "
+              f"{launches:.0f} device kernels and copies a step; top by device time per step: "
+              + "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top))
+
+    # (d) the exporter serving the workload source
+    async def serve() -> str:
+        from aiohttp.test_utils import TestClient, TestServer
+
+        client = TestClient(TestServer(make_app(Config(source="workload"))))
+        await client.start_server()
+        try:
+            await client.app[WARMUP_TASK]
+            deadline = time.monotonic() + 120
+            while True:
+                resp = await client.get("/metrics")
+                check(resp.status == 200, f"/metrics status {resp.status}")
+                text = await resp.text()
+                if f"\n{WORKLOAD_LOSS}{{" in text or time.monotonic() > deadline:
+                    return text
+                await asyncio.sleep(0.05)
+        finally:
+            await client.close()  # closes the source: the runner stops
+
+    text = asyncio.run(serve())
+    for series in (WORKLOAD_LOSS, WORKLOAD_STEPS_PER_S, WORKLOAD_TFLOPS):
+        lines = [ln for ln in text.splitlines() if ln.startswith(series + "{")]
+        check(len(lines) == 1 and math.isfinite(float(lines[0].rsplit(" ", 1)[1])),
+              f"/metrics under TPUDASH_SOURCE=workload: {series} lines {lines}")
+    print(f"(d) exporter with source=workload served /metrics (200, {len(text.splitlines())} lines) "
+          f"with {WORKLOAD_LOSS}, {WORKLOAD_STEPS_PER_S}, {WORKLOAD_TFLOPS}")
+
+
+def profile_steps(fn, n: int):
+    """(busy share, top 5 kernels by device ms per call, device kernels and
+    copies per call) of ``n`` calls of ``fn`` under torch.profiler; (None,
+    [], 0) when it records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in events)
+    if total <= 0:
+        return None, [], 0
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return (total / wall_us, [(e.key, e.self_device_time_total / n / 1e3) for e in events[:5]],
+            sum(e.count for e in events) / n)
 
 
 def main() -> int:
@@ -342,7 +612,30 @@ def main() -> int:
           f"k1=5 k2=205 {cp.value:.2f} GB/s ({100 * cp.value / gen.hbm_gbps:.2f} %); "
           f"launches {bench_counts}")
 
-    # -- 6. per-kernel times at the main path's shapes ---------------------------
+    # -- 6. the inter-GPU probes -------------------------------------------------
+    kernels.reset_launch_counts()
+    ici_phase([dev, dev], card, gen, "rehearsal on one card: device-to-device copy "
+              "rates of cuda:0 to cuda:0, not an interconnect rate")
+    n_gpus = torch.cuda.device_count()
+    if n_gpus > 1:
+        ici_phase([torch.device("cuda", i) for i in range(n_gpus)], card, gen,
+                  f"peer copies between {n_gpus} distinct GPUs")
+    else:
+        print("inter-GPU probes over distinct GPUs: NOT RUN (this machine has 1 GPU); "
+              "only the one-card rehearsal ran")
+    ici_counts = kernels.launch_counts()
+    print(f"inter-GPU probe path: launches {ici_counts} (the per-device probes of each slot)")
+
+    # -- 7. the training path ------------------------------------------------------
+    kernels.reset_launch_counts()
+    training_phase(dev, card, gen)
+    train_counts = kernels.launch_counts()
+    check(train_counts == {"hbm_read": 0, "hbm_copy": 0},
+          f"training path launched a probe kernel: {train_counts}")
+    print(f"training path: launches {train_counts} (it runs no hand-written kernel, as "
+          "the reference runs no Pallas kernel)")
+
+    # -- 8. per-kernel times at the main path's shapes ---------------------------
     x = torch.randn((rows, cols), generator=gen_rng, device=dev)
     prev = torch.randn((1, cols), generator=gen_rng, device=dev)
     scratch = kernels.hbm_read_scratch(x, block_rows)
@@ -376,12 +669,16 @@ def main() -> int:
          "replaces": "tpudash/ops/probes.py:160", "launches": main_counts["hbm_read"],
          "max_abs_err": read_err, "ms": read_t["kernel"], "plain_ms": read_t["plain"],
          "bound_ms": read_bound, "bound_by": read_by, "library_ms": read_t["library"],
-         "device_ms": read_dev, "host_us": read_host, "path": "exporter main path"},
+         "device_ms": read_dev, "host_us": read_host, "path": "exporter main path",
+         "launches_by_path": {"exporter": main_counts["hbm_read"], "bench": bench_counts["hbm_read"],
+                              "inter_gpu": ici_counts["hbm_read"], "training": train_counts["hbm_read"]}},
         {"name": "hbm_copy", "route": "cuda", "source": "tpudash_torch/ops/csrc/hbm_copy.cu",
          "replaces": "tpudash/ops/probes.py:196", "launches": bench_counts["hbm_copy"],
          "max_abs_err": 0.0, "ms": copy_t["kernel"], "plain_ms": copy_t["plain"],
          "bound_ms": copy_bound, "bound_by": copy_by, "library_ms": copy_t["library"],
-         "device_ms": copy_dev, "host_us": copy_host, "path": "probe bench path"},
+         "device_ms": copy_dev, "host_us": copy_host, "path": "probe bench path",
+         "launches_by_path": {"exporter": main_counts["hbm_copy"], "bench": bench_counts["hbm_copy"],
+                              "inter_gpu": ici_counts["hbm_copy"], "training": train_counts["hbm_copy"]}},
     ]
     def us(v):
         return "not measured" if v is None else f"{v * 1e3:.2f} us"
@@ -400,7 +697,7 @@ def main() -> int:
               f"library {e['host_us']['library']:.2f} us")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # -- 7. result ---------------------------------------------------------------
+    # -- 9. result ---------------------------------------------------------------
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -95,5 +95,5 @@ def test_make_app_serves_the_probe_source(source):
 
 
 def test_make_app_refuses_other_sources():
-    with pytest.raises(ValueError, match="probe source only"):
+    with pytest.raises(ValueError, match="probe and workload sources only"):
         make_app(Config(source="synthetic"), device="cpu")

@@ -1,7 +1,6 @@
 """TorchProbeSource held against the reference ProbeSource on the CPU, and
 the port's schema, registry and config against the reference's."""
 
-import logging
 import threading
 
 import pytest
@@ -130,19 +129,18 @@ def test_no_gpu_and_no_cpu_request_raises(monkeypatch):
         src.fetch()
 
 
-def test_several_gpus_probe_each_alone_and_emit_no_ici(monkeypatch, caplog):
-    src = _source()
-    monkeypatch.setattr(src, "_devices", lambda: [torch.device("cpu")] * 2)
-    with caplog.at_level(logging.INFO, logger="tpudash_torch.sources.probe"):
-        samples = src.fetch()
-        src._cache = {}
-        src.fetch()
+def test_several_devices_run_the_inter_device_probes_and_emit_ici():
+    src = TorchProbeSource(_cfg(), devices=["cpu"] * 2)
+    samples = src.fetch()
     assert {s.chip.chip_id for s in samples} == {0, 1}
-    assert set(src._cache) == {"tflops_0", "tflops_1", "hbm_gbps_0", "hbm_gbps_1"}
-    ici = {tschema.ICI_TX, tschema.ICI_RX, *tschema.ICI_LINK_SERIES.values()}
-    assert not ici & {s.metric for s in samples}
-    notes = [r for r in caplog.records if "not ported yet" in r.getMessage()]
-    assert len(notes) == 1  # logged once, not once per batch
+    assert set(src._cache) == {"tflops_0", "tflops_1", "hbm_gbps_0", "hbm_gbps_1",
+                               "ici_tx", "ici_rx", "ici_link_xp", "ici_link_xn"}
+    ici = {tschema.ICI_TX, tschema.ICI_RX, tschema.ICI_LINK_SERIES["xp"],
+           tschema.ICI_LINK_SERIES["xn"]}
+    for chip_id in (0, 1):
+        got = {s.metric: s.value for s in samples if s.chip.chip_id == chip_id}
+        assert ici <= set(got) and all(got[m] > 0 for m in ici)
+        assert got[tschema.ICI_LINK_SERIES["xp"]] == got[tschema.ICI_LINK_SERIES["xn"]]
 
 
 # --- schema, registry, config ----------------------------------------------------

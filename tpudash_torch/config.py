@@ -1,9 +1,10 @@
 """Configuration of the exporter path.
 
-Only the fields the probe exporter reads, loaded from the same
+Only the fields the exporter's sources read, loaded from the same
 ``TPUDASH_*`` environment names as ``tpudash/config.py``, so one deployment
-manifest configures either package.  Probe sizing comes in through
-``Config.extra`` with the reference's ``probe_*`` keys.
+manifest configures either package.  Probe and workload sizing come in
+through ``Config.extra`` with the reference's ``probe_*`` / ``workload_*``
+keys.
 """
 
 from __future__ import annotations
@@ -15,9 +16,9 @@ from dataclasses import dataclass, field, fields
 
 @dataclass(frozen=True)
 class Config:
-    #: Metrics source.  The port's exporter serves only the probe source;
-    #: "prometheus" (the shared default of the dashboard's config) means
-    #: the same thing here, as in the reference exporter.
+    #: Metrics source: "probe" or "workload".  "prometheus" (the shared
+    #: default of the dashboard's config) means "probe" here, as in the
+    #: reference exporter.
     source: str = "prometheus"
     #: Exporter bind address and port (python -m tpudash_torch.exporter).
     host: str = "0.0.0.0"
@@ -25,6 +26,10 @@ class Config:
     #: Generation hint ("h100-sxm", "h100-pcie"), used when the device name
     #: resolves to no record; "" or a TPU name leaves the registry default.
     generation: str = ""
+    #: source="workload": checkpoint/resume for the background train loop
+    #: (empty dir or every=0 disables)
+    workload_checkpoint_dir: str = ""
+    workload_checkpoint_every: int = 64
     extra: dict = field(default_factory=dict)
 
 
@@ -33,6 +38,8 @@ _ENV_MAP = {
     "host": "TPUDASH_HOST",
     "exporter_port": "TPUDASH_EXPORTER_PORT",
     "generation": "TPUDASH_GENERATION",
+    "workload_checkpoint_dir": "TPUDASH_WORKLOAD_CKPT_DIR",
+    "workload_checkpoint_every": "TPUDASH_WORKLOAD_CKPT_EVERY",
 }
 
 

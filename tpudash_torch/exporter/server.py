@@ -1,7 +1,9 @@
 """Exporter HTTP server — ``/metrics`` in Prometheus exposition format, fed
-by the GPU probe source.  The counterpart of ``tpudash/exporter/server.py``.
+by the GPU probe source or the training workload.  The counterpart of
+``tpudash/exporter/server.py``.
 
-    python -m tpudash_torch.exporter   # serves :9100/metrics from probes
+    python -m tpudash_torch.exporter                          # probes
+    TPUDASH_SOURCE=workload python -m tpudash_torch.exporter  # training
 
 One exporter per GPU host, single process.  The source is shared, so
 concurrent scrapes serialize on one probe run; heavy probes are
@@ -20,6 +22,7 @@ from tpudash_torch.config import Config, configure_logging, load_config
 from tpudash_torch.exporter.textfmt import encode_samples_py
 from tpudash_torch.sources.base import MetricsSource, SourceError
 from tpudash_torch.sources.probe import TorchProbeSource
+from tpudash_torch.sources.workload import TorchWorkloadSource
 
 log = logging.getLogger(__name__)
 
@@ -54,7 +57,8 @@ class ExporterServer:
 
     async def cool(self, app: web.Application) -> None:
         """Shutdown cleanup: cancel a still-pending warmup so Ctrl-C exits
-        cleanly instead of leaving a destroyed-but-pending task."""
+        cleanly instead of leaving a destroyed-but-pending task, then close
+        the source (the workload's training thread stops)."""
         task = app.get(WARMUP_TASK)
         if task is not None and not task.done():
             task.cancel()
@@ -62,6 +66,7 @@ class ExporterServer:
                 await task
             except (asyncio.CancelledError, Exception):  # noqa: BLE001
                 pass
+        await asyncio.get_running_loop().run_in_executor(None, self.source.close)
 
     async def metrics(self, request: web.Request) -> web.Response:
         async with self._lock:
@@ -100,16 +105,22 @@ class ExporterServer:
 def make_app(
     cfg: Config | None = None, device: "torch.device | str | None" = None
 ) -> web.Application:
-    """The exporter app over a TorchProbeSource on ``device`` (every local
-    GPU when None)."""
+    """The exporter app over a TorchProbeSource (every local GPU when
+    ``device`` is None) or, for ``source="workload"``, a TorchWorkloadSource
+    (``cuda:0`` when None)."""
     cfg = cfg or load_config()
     # "prometheus" is the shared config default: an exporter exports what
     # this host's devices are doing, as in the reference
-    if cfg.source not in ("prometheus", "probe"):
+    if cfg.source in ("prometheus", "probe"):
+        source: MetricsSource = TorchProbeSource(cfg, device=device)
+    elif cfg.source == "workload":
+        source = TorchWorkloadSource(cfg, device=device)
+    else:
         raise ValueError(
-            f"the port's exporter serves the probe source only, not {cfg.source!r}"
+            f"the port's exporter serves the probe and workload sources only, "
+            f"not {cfg.source!r}"
         )
-    server = ExporterServer(TorchProbeSource(cfg, device=device))
+    server = ExporterServer(source)
     app = server.build_app()
     app.on_startup.append(server.warm)
     app.on_cleanup.append(server.cool)

@@ -1,0 +1,172 @@
+"""Background workload runner: the counterpart of ``tpudash/models/runner.py``.
+
+Runs the demo transformer's train step in a daemon thread on one device and
+tracks achieved throughput: steps/s, achieved TFLOP/s (analytic FLOPs ÷
+measured step time), and current loss.  The probe source measures what the
+card *can* do; the workload runner shows what it *is* doing.
+
+On a host with several GPUs it trains on ``cuda:0`` only: the reference's
+dp×tp sharded step is not ported yet.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+
+import torch
+
+from tpudash_torch.models.workload import (
+    WorkloadConfig,
+    flops_per_step,
+    make_train_state,
+    train_step,
+)
+
+_log = logging.getLogger(__name__)
+
+
+def training_device(device: "torch.device | str | None" = None) -> torch.device:
+    """The device the workload trains on: ``device``, else ``cuda:0``;
+    without a GPU and without a device it raises, never picks the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device (pass device='cpu' to train on the CPU)")
+    n = torch.cuda.device_count()
+    if n > 1:
+        _log.info("%d GPUs: the workload trains on cuda:0 only; the dp×tp "
+                  "sharded step is not ported yet", n)
+    return torch.device("cuda", 0)
+
+
+class WorkloadRunner:
+    def __init__(
+        self,
+        cfg: WorkloadConfig | None = None,
+        steps_per_sync: int = 8,
+        checkpoint_dir: str = "",
+        checkpoint_every: int = 0,
+        device: "torch.device | str | None" = None,
+    ):
+        self.cfg = cfg or WorkloadConfig()
+        self.device = training_device(device)
+        #: dispatch this many steps back to back before one host readback:
+        #: a per-step readback would idle the card between steps
+        self.steps_per_sync = max(1, steps_per_sync)
+        #: checkpoint/resume (models/checkpoint.py): save every N steps into
+        #: checkpoint_dir and resume from its latest step on start.  Empty
+        #: dir or N=0 disables.
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = max(0, checkpoint_every)
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._lock = threading.Lock()
+        # telemetry (read under lock)
+        self.steps = 0
+        self.loss = float("nan")
+        self.step_time_ema = float("nan")  # seconds
+        self.error: str | None = None
+        self.resumed_from: int | None = None
+
+    # -- lifecycle -----------------------------------------------------------
+    def start(self) -> "WorkloadRunner":
+        if self._thread is not None:
+            return self
+        self._thread = threading.Thread(
+            target=self._loop, name="tpudash-workload", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def stop(self, timeout: float = 10.0) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout)
+            self._thread = None
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    # -- training loop -------------------------------------------------------
+    def _loop(self) -> None:
+        try:
+            cfg, dev = self.cfg, self.device
+            params, optimizer = make_train_state(
+                cfg, torch.Generator(device=dev).manual_seed(0)
+            )
+
+            # checkpointing is best-effort: an unwritable dir, a corrupt
+            # checkpoint or one of another package must degrade to "train
+            # without checkpoints", never kill the workload
+            ckptr = None
+            if self.checkpoint_dir and self.checkpoint_every:
+                try:
+                    from tpudash_torch.models.checkpoint import WorkloadCheckpointer
+
+                    ckptr = WorkloadCheckpointer(self.checkpoint_dir)
+                    restored = ckptr.restore_latest(params, optimizer)
+                except Exception as e:  # noqa: BLE001
+                    _log.warning("checkpointing disabled: %s", e)
+                    ckptr, restored = None, None
+                if restored is not None:
+                    step0 = restored[2]
+                    with self._lock:
+                        self.steps = step0
+                        self.resumed_from = step0
+
+            data_gen = torch.Generator(device=dev).manual_seed(1)
+            k = self.steps_per_sync
+            last_saved = self.steps
+            while not self._stop.is_set():
+                t0 = time.perf_counter()
+                loss = None
+                for _ in range(k):  # dispatch k steps, sync once
+                    tokens = torch.randint(
+                        0, cfg.vocab, (cfg.batch, cfg.seq), generator=data_gen, device=dev
+                    )
+                    loss = train_step(params, optimizer, tokens, cfg)
+                loss_val = loss.item()  # readback = true batch boundary
+                dt = (time.perf_counter() - t0) / k
+                with self._lock:
+                    self.steps += k
+                    self.loss = loss_val
+                    self.step_time_ema = (
+                        dt
+                        if self.step_time_ema != self.step_time_ema  # NaN
+                        else 0.7 * self.step_time_ema + 0.3 * dt
+                    )
+                if ckptr and self.steps - last_saved >= self.checkpoint_every:
+                    try:
+                        ckptr.save(self.steps, params, optimizer)
+                        last_saved = self.steps
+                    except Exception as e:  # noqa: BLE001 — disk full etc.
+                        _log.warning("checkpoint save failed, disabling: %s", e)
+                        ckptr = None
+            if ckptr and self.steps > last_saved:
+                try:
+                    ckptr.save(self.steps, params, optimizer)  # final save
+                except Exception as e:  # noqa: BLE001
+                    _log.warning("final checkpoint save failed: %s", e)
+        except Exception as e:  # surface crashes to the source, don't die mute
+            with self._lock:
+                self.error = f"workload crashed: {e}"
+
+    # -- telemetry -----------------------------------------------------------
+    def metrics(self) -> dict:
+        with self._lock:
+            if self.error:
+                raise RuntimeError(self.error)
+            st = self.step_time_ema
+            ok = st == st and st > 0
+            return {
+                "steps": self.steps,
+                "resumed_from": self.resumed_from,
+                "loss": self.loss,
+                "steps_per_second": (1.0 / st) if ok else 0.0,
+                "achieved_tflops": (
+                    flops_per_step(self.cfg) / st / 1e12 if ok else 0.0
+                ),
+            }

@@ -1,0 +1,243 @@
+"""Inter-device probes: the counterpart of ``tpudash/parallel/collectives.py``.
+
+A ring shift (each device sends its shard to its +1 neighbour: the
+per-link number), an all-gather (each device receives n−1 shards) and a tiny
+all-reduce (latency ceiling), each over a LIST of devices driven from one
+process.  The same code runs on n CPU "devices" in the tests, on one card
+named n times, and on n GPUs.
+
+The ring and the all-gather move bytes by peer copies
+(``dst.copy_(src, non_blocking=True)``) into buffers allocated once, not by
+``torch.cuda.nccl``: NCCL refuses a device that appears twice in a
+communicator, and peer copies need no process group.  Every copy lands in a
+distinct buffer, so a device named twice still moves every byte
+(``x.to(dev)`` would return ``x`` itself).
+
+Timing follows ``tpudash_torch.ops.probes``: a scalar read back to the host
+as the completion barrier, two work multiples, the rate on the delta.  The
+devices form one ring, the ``tp`` axis of the reference's ``{"tp": n}`` mesh.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Sequence
+
+import torch
+
+from tpudash_torch.ops.probes import ProbeResult, _delta_time, _timed_scalar
+
+AXIS = "tp"
+#: spin cycles per second of the gate: the H100's top SM clock (1.98 GHz);
+#: at a lower clock the gate only lasts longer
+_GATE_CYCLES_PER_S = 2.0e9
+
+
+def _sharded_ones(devices: Sequence[torch.device], mb_per_device: int) -> list[torch.Tensor]:
+    """One (rows_per_dev, 1024) f32 shard of ones per device, the
+    reference's row-sharded global array cut at the same rows."""
+    rows_per_dev = max(8, (mb_per_device * 1024 * 1024) // (1024 * 4))
+    return [torch.ones((rows_per_dev, 1024), dtype=torch.float32, device=d) for d in devices]
+
+
+def _gate(devices: Sequence[torch.device], seconds: float) -> None:
+    """Hold every GPU's current stream in a spin of ``seconds`` while the
+    host issues the copies behind it, so each device runs them back to
+    back.  Without it a copy that is quicker than Python's issue of the next
+    one (a few µs on one card) leaves the paired delta measuring the host,
+    not the copies (the reference's collectives run as one XLA program,
+    with no host between copies)."""
+    cycles = int(seconds * _GATE_CYCLES_PER_S)
+    for d in dict.fromkeys(d for d in devices if d.type == "cuda"):
+        with torch.cuda.device(d):
+            torch.cuda._sleep(cycles)
+
+
+def _gate_seconds(issue) -> float:
+    """The gate for a probe's timed calls: twice the host time that
+    ``issue(0.0)`` (the larger variant, ungated) takes to issue its copies,
+    measured once before timing.  Both variants of every pair get this one
+    gate, so it cancels in the delta."""
+    t0 = time.perf_counter()
+    out = issue(0.0)
+    seconds = time.perf_counter() - t0
+    out.item()
+    return 2 * seconds
+
+
+def _side_streams(devices: Sequence[torch.device]) -> list:
+    """One stream per device slot (None on the CPU), each made to wait for
+    its device's current stream, where the shards were made.  Copies that
+    share one stream run one after another: a ring on one stream would
+    report about 1/n of a link's rate."""
+    streams = []
+    for d in devices:
+        if d.type != "cuda":
+            streams.append(None)
+            continue
+        s = torch.cuda.Stream(device=d)
+        s.wait_stream(torch.cuda.current_stream(d))
+        streams.append(s)
+    return streams
+
+
+def _on(stream) -> contextlib.AbstractContextManager:
+    """Make ``stream`` current on its device.  A copy between two GPUs runs
+    on the SOURCE device's current stream (PyTorch's rule), so a copy issued
+    here runs on the source slot's own stream."""
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+
+def _record(stream):
+    if stream is None:
+        return None
+    ev = torch.cuda.Event()
+    ev.record(stream)
+    return ev
+
+
+def _join(devices: Sequence[torch.device], done: list) -> None:
+    """Make device 0's current stream wait for every slot's last copy.  The
+    scalar is read back from device 0 only; without the join it would time
+    device 0's copies alone, where the reference's readback waits for the
+    whole program."""
+    if devices[0].type != "cuda":
+        return
+    main = torch.cuda.current_stream(devices[0])
+    for ev in done:
+        main.wait_event(ev)
+
+
+def _ring(shards: list[torch.Tensor], bufs: tuple, k: int, reverse: bool,
+          gate_s: float = 0.0) -> list[torch.Tensor]:
+    """``k`` ring shifts of ``shards`` (+1 each step, −1 with ``reverse``)
+    through the double buffers ``bufs``, behind a gate of ``gate_s``;
+    returns each slot's final buffer.
+
+    Step t reads the buffers step t−1 wrote and writes the ones step t−1
+    read, so before its copy a slot's stream waits for two events of step
+    t−1: the copy that filled its source, and the copy that last read its
+    destination.  Fresh events each step keep a wait from landing on a copy
+    of the same step."""
+    n = len(shards)
+    step = -1 if reverse else 1
+    devices = [s.device for s in shards]
+    _gate(devices, gate_s)
+    streams = _side_streams(devices)
+    cur = list(shards)
+    prev = None
+    for t in range(k):
+        nxt = list(bufs[t % 2])
+        done = []
+        for i in range(n):
+            j = (i + step) % n
+            with _on(streams[i]):
+                if prev is not None and streams[i] is not None:
+                    streams[i].wait_event(prev[(i - step) % n])  # cur[i] is filled
+                    streams[i].wait_event(prev[j])  # nxt[j] is read
+                nxt[j].copy_(cur[i], non_blocking=True)
+            done.append(_record(streams[i]))
+        cur, prev = nxt, done
+    if prev is not None:
+        _join(devices, prev)
+    return cur
+
+
+def ppermute_ring_bandwidth_probe(
+    devices: Sequence,
+    mb_per_device: int = 64,
+    steps: int = 4,
+    reverse: bool = False,
+) -> ProbeResult:
+    """Ring shift: every device sends its whole shard to its +1 neighbour
+    (−1 with ``reverse``, the other cable of the pair).  Delta-timed at
+    ``steps`` vs ``3·steps`` shifts; value is per-device one-way GB/s (the
+    tpu_ici_tx_bytes_per_second feed; per direction for the
+    tpu_ici_link_* series)."""
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    steps = max(1, steps)
+    x = _sharded_ones(devices, mb_per_device)
+    bufs = tuple([torch.empty_like(s) for s in x] for _ in range(2))
+
+    def ring_sum(k: int, gate_s: float) -> torch.Tensor:
+        return _ring(x, bufs, k, reverse, gate_s)[0][0, :8].sum()
+
+    gate_s = _gate_seconds(lambda g: ring_sum(3 * steps, g))
+    dt = _delta_time(lambda: ring_sum(steps, gate_s), lambda: ring_sum(3 * steps, gate_s))
+    shard_bytes = x[0].numel() * 4
+    return ProbeResult(
+        value=shard_bytes * (2 * steps) / dt / 1e9,
+        elapsed_s=dt,
+        detail={"axis": AXIS, "devices": n, "mb_per_device": mb_per_device,
+                "steps": steps, "reverse": reverse},
+    )
+
+
+def _all_gather(shards: list[torch.Tensor], outs: list[torch.Tensor],
+                gate_s: float = 0.0) -> list[torch.Tensor]:
+    """Every slot's ``outs[i]`` receives all n shards in order (its own
+    too, as a tiled all-gather's output holds it), behind a gate of
+    ``gate_s``.  Round r sends slot k's shard to slot k+r: the n copies of
+    a round run at once on the senders' streams, and no two copies write
+    one place."""
+    n = len(shards)
+    rows = shards[0].shape[0]
+    devices = [s.device for s in shards]
+    _gate(devices, gate_s)
+    streams = _side_streams(devices)
+    for r in range(n):
+        for k in range(n):
+            i = (k + r) % n
+            with _on(streams[k]):
+                outs[i][k * rows:(k + 1) * rows].copy_(shards[k], non_blocking=True)
+    _join(devices, [_record(s) for s in streams if s is not None])
+    return outs
+
+
+def all_gather_bandwidth_probe(devices: Sequence, mb_per_device: int = 32) -> ProbeResult:
+    """All-gather: each device receives (n−1) shards.  Delta-timed at shard
+    sizes S vs 3S (fixed overhead is size-independent); value is per-device
+    rx GB/s (the tpu_ici_rx_bytes_per_second feed)."""
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    x1 = _sharded_ones(devices, mb_per_device)
+    x3 = _sharded_ones(devices, 3 * mb_per_device)
+    out1 = [torch.empty((n * s.shape[0], s.shape[1]), device=s.device) for s in x1]
+    out3 = [torch.empty((n * s.shape[0], s.shape[1]), device=s.device) for s in x3]
+    def gather_sum(x, out, gate_s: float) -> torch.Tensor:
+        return _all_gather(x, out, gate_s)[0][0, :8].sum()
+
+    gate_s = _gate_seconds(lambda g: gather_sum(x3, out3, g))
+    dt = _delta_time(lambda: gather_sum(x1, out1, gate_s), lambda: gather_sum(x3, out3, gate_s))
+    extra_bytes = (sum(s.numel() for s in x3) - sum(s.numel() for s in x1)) * 4 // n * (n - 1)
+    return ProbeResult(
+        value=extra_bytes / dt / 1e9,
+        elapsed_s=dt,
+        detail={"axis": AXIS, "devices": n, "mb_per_device": mb_per_device},
+    )
+
+
+def _psum_sum(shards: list[torch.Tensor]) -> torch.Tensor:
+    """``b + psum(Σ b)`` on every slot; returns ``Σ out[0][0, :8]`` after
+    device 0 has waited for every device's work."""
+    devices = [s.device for s in shards]
+    partials = [s.sum() for s in shards]
+    outs = [s + sum(p.to(d) for p in partials) for s, d in zip(shards, devices)]
+    _join(devices, [_record(torch.cuda.current_stream(d)) for d in devices if d.type == "cuda"])
+    return outs[0][0, :8].sum()
+
+
+def psum_latency_probe(devices: Sequence) -> ProbeResult:
+    """Latency ceiling: one all-reduce of a tiny array across the devices,
+    scalar readback included (µs): an upper bound that contains the host
+    round trip; trend, not absolute, is the signal."""
+    devices = [torch.device(d) for d in devices]
+    x = [torch.ones((1, 128), dtype=torch.float32, device=d) for d in devices]
+    dt = _timed_scalar(_psum_sum, x)
+    return ProbeResult(
+        value=dt * 1e6,
+        elapsed_s=dt,
+        detail={"axis": AXIS, "devices": len(devices), "unit": "us"},
+    )

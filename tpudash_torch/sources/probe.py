@@ -6,10 +6,10 @@ Turns local probes into the same Sample stream the reference emits:
 - tpu_hbm_used/total_bytes    ← allocator memory stats (falls back to the
                                 GPU record's capacity for the total)
 - tpu_hbm_bandwidth_gbps      ← the read-streaming kernel probe
-
-The reference's inter-chip probes (ring, all-gather, link rings) are not
-ported yet: on a host with several GPUs each device is probed on its own
-and no ICI series is emitted.
+- tpu_ici_tx/rx_bytes_per_second ← ring / all-gather peer-copy probes
+                                   (several devices only)
+- tpu_ici_link_xp/xn_bytes_per_second ← forward/reverse rings over the
+                                   devices' one ring
 
 Heavy probes run at most once per ``probe_heavy_interval`` seconds; in
 between, the last measurement is re-emitted.
@@ -33,6 +33,9 @@ from tpudash_torch.schema import (
     HBM_BANDWIDTH,
     HBM_TOTAL,
     HBM_USED,
+    ICI_LINK_SERIES,
+    ICI_RX,
+    ICI_TX,
     TENSORCORE_UTIL,
     ChipKey,
     Sample,
@@ -49,11 +52,24 @@ def _device_name(dev: torch.device) -> str:
 class TorchProbeSource(MetricsSource):
     name = "probe"
 
-    def __init__(self, cfg: Config, device: "torch.device | str | None" = None):
+    def __init__(
+        self,
+        cfg: Config,
+        device: "torch.device | str | None" = None,
+        devices: "list | None" = None,
+    ):
         self.cfg = cfg
-        #: None probes every local CUDA device; a device (``"cpu"`` in the
-        #: tests) probes that one only
-        self.device = None if device is None else torch.device(device)
+        if device is not None and devices is not None:
+            raise ValueError("pass device or devices, not both")
+        #: None probes every local CUDA device; ``device`` (``"cpu"`` in the
+        #: tests) probes that one only; ``devices`` probes that list, a device
+        #: named twice standing in for two (``["cpu"] * 8`` in the tests,
+        #: ``["cuda:0"] * 2`` to rehearse the inter-GPU probes on one card)
+        self.devices = (
+            [torch.device(device)] if device is not None
+            else None if devices is None
+            else [torch.device(d) for d in devices]
+        )
         self.matmul_size = int(cfg.extra.get("probe_matmul_size", 2048))
         self.matmul_iters = int(cfg.extra.get("probe_matmul_iters", 16))
         self.hbm_mb = int(cfg.extra.get("probe_hbm_mb", 256))
@@ -64,8 +80,6 @@ class TorchProbeSource(MetricsSource):
                 f"probe_hbm_k2 ({self.hbm_k2}) must exceed probe_hbm_k1 "
                 f"({self.hbm_k1})"
             )
-        #: read for parity with the reference; used once the inter-GPU
-        #: probes are ported
         self.ici_mb = int(cfg.extra.get("probe_ici_mb", 16))
         self.heavy_interval = float(cfg.extra.get("probe_heavy_interval", 30.0))
         self._last_heavy: float = 0.0
@@ -73,11 +87,10 @@ class TorchProbeSource(MetricsSource):
         #: serializes heavy probe runs (startup warmup vs first scrape)
         self._heavy_lock = threading.Lock()
         self._refresh_thread: "threading.Thread | None" = None
-        self._multi_gpu_logged = False
 
     def _devices(self) -> list[torch.device]:
-        if self.device is not None:
-            return [self.device]
+        if self.devices is not None:
+            return self.devices
         if not torch.cuda.is_available():
             raise SourceError("no CUDA device (pass device='cpu' to probe the CPU)")
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -100,12 +113,26 @@ class TorchProbeSource(MetricsSource):
                 self.hbm_mb, k1=self.hbm_k1, k2=self.hbm_k2, device=dev
             )
             fresh[f"hbm_gbps_{i}"] = hbm.value
-        if len(devices) > 1 and not self._multi_gpu_logged:
-            self._multi_gpu_logged = True
-            log.info(
-                "%d GPUs: each is probed on its own; the inter-GPU probes "
-                "(ICI series) are not ported yet", len(devices),
+
+        if len(devices) > 1:
+            from tpudash_torch.parallel.collectives import (
+                all_gather_bandwidth_probe,
+                ppermute_ring_bandwidth_probe,
             )
+            from tpudash_torch.parallel.mesh import build_mesh
+
+            ring = build_mesh({"tp": len(devices)}, devices=devices).devices
+            tx = ppermute_ring_bandwidth_probe(ring, self.ici_mb)
+            rx = all_gather_bandwidth_probe(ring, self.ici_mb)
+            fresh["ici_tx"] = tx.value * 1e9
+            fresh["ici_rx"] = rx.value * 1e9
+            # direction-resolved: the forward (+1) and reverse (−1) shifts
+            # load each device's two ring neighbours separately; a link's
+            # series is combined tx+rx, as in the reference, which gives
+            # both directions the same value
+            rev = ppermute_ring_bandwidth_probe(ring, self.ici_mb, reverse=True)
+            fresh["ici_link_xp"] = (tx.value + rev.value) * 1e9
+            fresh["ici_link_xn"] = (tx.value + rev.value) * 1e9
         return fresh
 
     def _refresh_heavy(self) -> None:
@@ -187,4 +214,12 @@ class TorchProbeSource(MetricsSource):
             emit(HBM_USED, i, mem["used_bytes"])
             emit(HBM_TOTAL, i, hbm_total)
             emit(HBM_BANDWIDTH, i, self._cache[f"hbm_gbps_{i}"])
+            if "ici_tx" in self._cache:
+                # ring/all-gather are symmetric: every device moves the same
+                # bytes, so the per-device value is genuinely per-device
+                emit(ICI_TX, i, self._cache["ici_tx"])
+                emit(ICI_RX, i, self._cache["ici_rx"])
+            if "ici_link_xp" in self._cache:
+                emit(ICI_LINK_SERIES["xp"], i, self._cache["ici_link_xp"])
+                emit(ICI_LINK_SERIES["xn"], i, self._cache["ici_link_xn"])
         return samples
