@@ -21,6 +21,12 @@ From the root of a checkout, on a host with one H100:
    cuda:0: the card's loss against the CPU's on one sequence, the loss at
    init, TorchWorkloadSource training until 3 syncs with falling loss, step
    time, TFLOP/s and peak memory, and the exporter serving the workload;
+   then the dp×tp sharded step at the same defaults over [cuda:0, cuda:0]
+   (a rehearsal: the mesh's maths on one card, not its placement) against
+   the unsharded step, with TorchWorkloadSource and the exporter emitting
+   chip_id 0 and 1; then ring attention at the defaults' shapes over an sp
+   ring of the same two slots against its oracle, and one ring train step;
+   each of these over every GPU too when there are several;
 8. times each kernel at the main path's shapes beside its bound, its plain
    version and one PyTorch call computing the same function, and the host
    time of one wrapper call;
@@ -37,6 +43,7 @@ from __future__ import annotations
 import asyncio
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -389,6 +396,391 @@ def training_phase(dev, card: str, gen) -> None:
           f"with {WORKLOAD_LOSS}, {WORKLOAD_STEPS_PER_S}, {WORKLOAD_TFLOPS}")
 
 
+def _ulp_bf16(a):
+    """One bf16 ulp of each element of the f32 tensor ``a`` of bf16 values."""
+    import torch
+
+    e = torch.floor(torch.log2(a.abs().clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.pow(2.0, e - 7)
+
+
+def param_rule(got: dict, want: dict, lr: float, context: "dict | None" = None) -> dict:
+    """The per-tensor rule of tests/test_torch_workload.py for parameters
+    after one AdamW step: no element more than 2·lr plus one ulp from
+    ``want``, at most 2 % more than one ulp.  Two corrections that the
+    workload's 10^8 parameters need and the tests' small trees happen not
+    to: the ulp is that of the larger of the two values (an update of
+    opposite sign can carry an element into the next binade, where its
+    rounding is twice as coarse), and lr stands for lr·(1 + 2^-6) (AdamW
+    forms the first update lr·m/(√v + eps) from bf16 moments, each op
+    rounded, so an update can exceed lr by a few bf16 units: 1.0093·lr for
+    an element near 1e-4 on an H100 at the workload defaults).  Raises past
+    the first part, naming the worst element and its value in each tree of
+    ``context`` (name → {label: tensor}); returns each leaf's share above
+    one ulp."""
+    import torch
+
+    from tpudash_torch.models import workload as W
+
+    want = dict(W.named_leaves(want))
+    shares = {}
+    for name, g in W.named_leaves(got):
+        w = want[name].to(g.device)
+        bf16 = w.dtype == torch.bfloat16
+        g, w = g.float(), w.float()
+        big = torch.maximum(g.abs(), w.abs())
+        ulp = _ulp_bf16(big) if bf16 else torch.finfo(torch.float32).eps * big.clamp_min(1e-30)
+        err = (g - w).abs()
+        check(g.shape == w.shape, f"{name}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+        bound = 2 * lr * (1 + 2.0**-6) + ulp
+        if not bool((err <= bound).all()):
+            i = int(torch.argmax(err - bound))
+            at = {"got": g, "want": w, **(context or {}).get(name, {})}
+            raise SmokeFailure(
+                f"{name}: max err {err.max().item():.3e} above 2·lr·(1 + 2^-6) + ulp; worst element "
+                f"{i}: " + ", ".join(f"{k} {t.reshape(-1)[i].item():.6e}" for k, t in at.items()))
+        shares[name] = (err > ulp).float().mean().item()
+    return shares
+
+
+GRAD_LIMIT = 2.0**-6  # a sharded gradient's relative distance from the unsharded one
+
+
+def grad_rel(got: dict, want: dict) -> dict:
+    """Per leaf of two flat name → tensor maps, ‖got − want‖ / ‖want‖ in f32."""
+    out = {}
+    for name, g in got.items():
+        w = want[name].float().to(g.device)
+        out[name] = ((g.float() - w).norm() / w.norm()).item()
+    return out
+
+
+def gradient_limit_phase(dev, card: str) -> None:
+    """Where :data:`GRAD_LIMIT` sits: the sharded gradients at the
+    workload defaults at tp 8 (dp 1 × tp 8 over the card named eight
+    times) and at dp 2 × tp 2 (named four times), each leaf against the
+    unsharded step's, and the same readings with a planted sharding
+    fault: the last tp shard's gradient zeroed (tp 8), and the dp sum left
+    out, each row keeping its own rows' gradient (dp 2).  The true readings
+    must lie under the limit and every planted one above it."""
+    import torch
+
+    from tpudash_torch.models import workload as W
+    from tpudash_torch.parallel.mesh import build_mesh
+
+    cfg = W.WorkloadConfig(vocab=2048, d_model=1024, n_heads=16, n_layers=8, d_ff=4096,
+                           seq=512, batch=16)
+    gen_t = torch.Generator(device=dev).manual_seed(SEED)
+    params, _ = W.make_train_state(cfg, gen_t)
+    batch = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=gen_t, device=dev)
+    W.loss_fn(params, batch, cfg).backward()
+    plain = {name: t.grad for name, t in W.named_leaves(params)}
+
+    def sharded_grads(axes: dict, dp_sum: bool):
+        plan = W.shard_plan(build_mesh(axes, [dev] * (axes["dp"] * axes["tp"])), cfg)
+        sharded, _ = W.make_sharded_train_step(plan.mesh, cfg)[1](params, None)
+        W.sharded_loss_fn(sharded, batch, plan).backward()
+        if dp_sum:
+            for _, rows in W.named_leaves(sharded):
+                for c in range(len(rows[0])):
+                    W.sum_replica_grads([row[c] for row in rows])
+        return plan, sharded
+
+    def fmt(rel: dict) -> str:
+        return ", ".join(f"{n.split('.')[-1]} {v:.2e}" for n, v in rel.items())
+
+    plan, sharded = sharded_grads({"dp": 1, "tp": 8}, True)
+    parts = {name: [t.grad for t in rows[0]] for name, rows in W.named_leaves(sharded)}
+    tp8 = grad_rel({n: plan.join(n, g) for n, g in parts.items()}, plain)
+    zeroed = grad_rel({n: plan.join(n, g[:-1] + [torch.zeros_like(g[-1])])
+                       for n, g in parts.items() if len(g) > 1}, plain)
+    del sharded, parts
+    plan, sharded = sharded_grads({"dp": 2, "tp": 2}, False)
+    no_sum = grad_rel({n: plan.join(n, [t.grad for t in rows[0]])
+                       for n, rows in W.named_leaves(sharded)}, plain)
+    for _, rows in W.named_leaves(sharded):
+        for c in range(len(rows[0])):
+            W.sum_replica_grads([row[c] for row in rows])
+    dp2 = grad_rel({n: plan.join(n, [t.grad for t in rows[0]])
+                    for n, rows in W.named_leaves(sharded)}, plain)
+    del sharded, params, plain
+    print(f"gradient limit 2^-6 = {GRAD_LIMIT:.3e} at the workload defaults [{card}]:")
+    print(f"  dp 1 × tp 8, true: {fmt(tp8)}")
+    print(f"  dp 2 × tp 2, true: {fmt(dp2)}")
+    print(f"  planted, last tp shard's gradient zeroed (tp 8): {fmt(zeroed)}")
+    print(f"  planted, dp sum left out (dp 2 × tp 2, row 0's own): {fmt(no_sum)}")
+    true_max, fault_min = max([*tp8.values(), *dp2.values()]), min([*zeroed.values(), *no_sum.values()])
+    check(true_max <= GRAD_LIMIT, f"a true sharded gradient reads {true_max:.3e} above 2^-6")
+    check(fault_min > GRAD_LIMIT, f"a planted fault reads {fault_min:.3e}, under 2^-6")
+    print(f"  largest true reading {true_max:.3e} ({GRAD_LIMIT / true_max:.2f}x under the limit); "
+          f"smallest planted {fault_min:.3e} ({fault_min / GRAD_LIMIT:.1f}x above it)")
+
+
+def one_step_checks(p0: dict, sharded_after: dict, sharded_grads: dict, plain_after: dict,
+                    plain_grads: dict, cfg) -> str:
+    """The sharded step's first update against the unsharded step's:
+
+    1. gradients: per leaf, ‖g_sharded − g_plain‖ ≤ 2^-6 ‖g_plain‖ (four
+       bf16 units: both backward passes round at the same points, and the
+       GPU's products sum in other orders at other widths);
+    2. the update: AdamW from the initial parameters ``p0`` with the
+       sharded step's gradients, run afresh on the full tree, lands bitwise
+       on the gathered parameters;
+    3. the per-tensor rule (:func:`param_rule`) against the unsharded
+       step's parameters: every element within 2·lr + one ulp (as
+       corrected there); at most 2 %
+       of a bf16 leaf more than one ulp off.  For the f32 norms that share
+       is printed, not held: the first update lr·g/(|g| + eps) of an
+       element whose gradient is within a few hundred eps moves by more
+       than an f32 ulp for gradient noise at the bf16 level, which 1 and 2
+       bound instead."""
+    import torch
+
+    from tpudash_torch.models import workload as W
+
+    grads = []
+    for name, rel in grad_rel(dict(W.named_leaves(sharded_grads)), plain_grads).items():
+        check(rel <= GRAD_LIMIT, f"{name}: gradient off the unsharded step's by {rel:.3e} (> 2^-6)")
+        grads.append(f"{name.split('.')[-1]} {rel:.1e}")
+    fresh = W._unflatten((n, t.clone().requires_grad_(True)) for n, t in W.named_leaves(p0))
+    for name, t in W.named_leaves(fresh):
+        t.grad = dict(W.named_leaves(sharded_grads))[name].to(t.device)
+    W.make_optimizer(fresh, cfg).step()
+    after = dict(W.named_leaves(sharded_after))
+    for name, t in W.named_leaves(fresh):
+        check(torch.equal(t.detach(), after[name].to(t.device)),
+              f"{name}: the sharded update is not AdamW of the sharded gradient")
+    start = dict(W.named_leaves(p0))
+    context = {n: {"initial": start[n], "grad sharded": g, "grad unsharded": plain_grads[n]}
+               for n, g in W.named_leaves(sharded_grads)}
+    shares = param_rule(sharded_after, plain_after, cfg.lr, context)
+    for name, share in shares.items():
+        if dict(W.named_leaves(p0))[name].dtype == torch.bfloat16:
+            check(share <= 0.02, f"{name}: {100 * share:.2f} % of elements more than one ulp off")
+    return ("gradient rel. diff " + ", ".join(grads) + "; the update is AdamW of the sharded "
+            "gradient, bitwise; share more than one ulp off the unsharded step's parameters "
+            + ", ".join(f"{n.split('.')[-1]} {100 * v:.3f} %" for n, v in shares.items()))
+
+
+def _distinct(devices: list) -> list:
+    return list(dict.fromkeys(devices))
+
+
+def sharded_phase(devices: list, card: str, gen, label: str) -> dict:
+    """The dp×tp sharded train step at the workload source's full defaults
+    over ``devices`` (mesh_axes_for(n)): its loss against the unsharded
+    step's on the same parameters and tokens (rtol 1e-4, the reference's
+    own bound), its gradients and parameters after one step against the
+    unsharded step's (:func:`one_step_checks`), each shard on the device the
+    plan names, step time, host issue time, busy share and peak memory per
+    device; then TorchWorkloadSource and the exporter over the same devices,
+    every series for every chip_id.  Returns the numbers for the record."""
+    import torch
+
+    from tpudash_torch.config import Config
+    from tpudash_torch.exporter.server import WARMUP_TASK, make_app
+    from tpudash_torch.models import workload as W
+    from tpudash_torch.parallel.mesh import build_mesh, mesh_axes_for
+    from tpudash_torch.schema import HBM_TOTAL, HBM_USED, TENSORCORE_UTIL
+    from tpudash_torch.sources.workload import (
+        WORKLOAD_LOSS,
+        WORKLOAD_STEPS_PER_S,
+        WORKLOAD_TFLOPS,
+        TorchWorkloadSource,
+    )
+
+    n = len(devices)
+    dev = devices[0]
+    cfg = W.WorkloadConfig(vocab=2048, d_model=1024, n_heads=16, n_layers=8, d_ff=4096,
+                           seq=512, batch=16)
+    flops = W.flops_per_step(cfg)
+    mesh = build_mesh(mesh_axes_for(n), devices)
+    plan = W.shard_plan(mesh, cfg)
+    print(f"sharded step over {n} slots ({label}) [{card}]: mesh {mesh.shape}, "
+          f"{'head-aligned' if plan.heads_aligned else 'contiguous'} qkv shards")
+    gen_t = torch.Generator(device=dev).manual_seed(SEED)
+    params, opt = W.make_train_state(cfg, gen_t)
+    batch = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=gen_t, device=dev)
+    step, shard_inputs = W.make_sharded_train_step(mesh, cfg)
+    sharded, sopt = shard_inputs(params, opt)
+    for name, rows in W.named_leaves(sharded):
+        for r, row in enumerate(rows):
+            for c, t in enumerate(row):
+                check(t.device == plan.device(r, c),
+                      f"{name}[{r}][{c}] on {t.device}, the plan names {plan.device(r, c)}")
+    p0 = W._unflatten((name, t.detach().clone()) for name, t in W.named_leaves(params))
+    loss_sh = step(sharded, sopt, batch).item()
+    loss_un = W.train_step(params, opt, batch, cfg).item()
+    rel = abs(loss_sh - loss_un) / loss_un
+    check(math.isfinite(loss_sh) and rel <= 1e-4,
+          f"sharded loss {loss_sh} vs unsharded {loss_un} (rel {rel:.3e} above 1e-4)")
+    print(f"  loss at init: sharded {loss_sh:.6f}, unsharded {loss_un:.6f} (rel {rel:.3e}, "
+          f"rtol 1e-4); every shard on the device the plan names")
+    grads = W._unflatten((name, plan.join(name, [t.grad for t in rows[0]]))
+                         for name, rows in W.named_leaves(sharded))
+    summary = one_step_checks(p0, W.gather_params(sharded, plan), grads, params,
+                              {name: t.grad for name, t in W.named_leaves(params)}, cfg)
+    print(f"  after one step: {summary}")
+    del params, opt, p0, grads
+
+    for d in _distinct(devices):
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    base = {str(d): torch.cuda.memory_allocated(d) for d in _distinct(devices)}
+    for _ in range(2):
+        step(sharded, sopt, batch)
+    steps = 10
+    for d in _distinct(devices):
+        torch.cuda.synchronize(d)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        loss = step(sharded, sopt, batch)
+    issue_ms = (time.perf_counter() - t0) / steps * 1e3
+    end.record()
+    for d in _distinct(devices):
+        torch.cuda.synchronize(d)
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    event_ms = start.elapsed_time(end) / steps
+    check(math.isfinite(loss.item()), "sharded loss went non-finite")
+    peak = {str(d): torch.cuda.max_memory_allocated(d) for d in _distinct(devices)}
+    busy, top, launches = profile_steps(lambda: step(sharded, sopt, batch), 3)
+    busy_share = None if busy is None else busy / len(_distinct(devices))
+    del sharded, sopt
+    print(f"  [{card}]: step {wall_ms:.3f} ms (host clock, every device synchronised; "
+          f"{flops / wall_ms / 1e9:.2f} TFLOP/s counted, {flops / wall_ms / 1e9 / n:.2f} per slot), "
+          f"{event_ms:.3f} ms by CUDA events on {dev}; host issue time {issue_ms:.3f} ms a step")
+    print(f"  peak max_memory_allocated per device: "
+          + "; ".join(f"{d} {peak[d]} B ({(peak[d] - base[d]) / 2**30:.2f} GiB above the "
+                      f"{base[d]} B held before the steps)" for d in peak))
+    if busy_share is None:
+        print("  device busy share: not measured (the profiler recorded no device time)")
+    else:
+        print(f"  device busy share over 3 steps (profiler; device time ÷ wall ÷ "
+              f"{len(_distinct(devices))} distinct devices): {100 * busy_share:.2f} %; "
+              f"{launches:.0f} device kernels and copies a step; top by device time per step: "
+              + "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top))
+
+    # TorchWorkloadSource over the same devices: one chip_id per slot
+    src = TorchWorkloadSource(Config(source="workload"), devices=devices)
+    series = {TENSORCORE_UTIL, HBM_USED, HBM_TOTAL, WORKLOAD_LOSS, WORKLOAD_STEPS_PER_S,
+              WORKLOAD_TFLOPS}
+    try:
+        src.fetch()  # starts the runner
+        deadline = time.monotonic() + 300
+        while src.runner.steps < 2 * src.runner.steps_per_sync:
+            check(time.monotonic() < deadline, f"runner stalled at {src.runner.steps} steps")
+            check(src.runner.error is None, f"runner: {src.runner.error}")
+            time.sleep(0.01)
+        samples = src.fetch()
+        m = src.runner.metrics()
+    finally:
+        src.close()
+    by_chip: dict = {}
+    for smp in samples:
+        by_chip.setdefault(smp.chip.chip_id, {})[smp.metric] = smp.value
+    check(set(by_chip) == set(range(n)), f"chip_ids {sorted(by_chip)}")
+    for i, got in by_chip.items():
+        check(set(got) == series and all(math.isfinite(v) for v in got.values()),
+              f"chip {i}: series {sorted(got)}")
+        check(0 < got[TENSORCORE_UTIL] <= 100 and got[HBM_USED] > 0, f"chip {i}: {got}")
+        check(got[WORKLOAD_TFLOPS] == m["achieved_tflops"] / n, f"chip {i}: per-chip TFLOP/s")
+    print(f"  TorchWorkloadSource over {n} slots: {m['steps']} steps, loss {m['loss']:.4f}, "
+          f"runner EMA {1e3 / m['steps_per_second']:.2f} ms a step, {m['achieved_tflops']:.2f} "
+          f"TFLOP/s in all; chip_ids {sorted(by_chip)} with every series; exported util "
+          f"{by_chip[0][TENSORCORE_UTIL]:.4f} % per chip")
+
+    async def serve() -> str:
+        from aiohttp.test_utils import TestClient, TestServer
+
+        client = TestClient(TestServer(make_app(Config(source="workload"), devices=devices)))
+        await client.start_server()
+        try:
+            await client.app[WARMUP_TASK]
+            deadline = time.monotonic() + 120
+            while True:
+                resp = await client.get("/metrics")
+                check(resp.status == 200, f"/metrics status {resp.status}")
+                text = await resp.text()
+                if text.count(f"\n{WORKLOAD_LOSS}{{") == n or time.monotonic() > deadline:
+                    return text
+                await asyncio.sleep(0.05)
+        finally:
+            await client.close()
+
+    text = asyncio.run(serve())
+    for name in series:
+        lines = [ln for ln in text.splitlines() if ln.startswith(name + "{")]
+        chips = sorted(int(re.search(r'chip_id="(\d+)"', ln).group(1)) for ln in lines)
+        check(chips == list(range(n)), f"/metrics over {n} slots: {name} lines {lines}")
+    print(f"  exporter over {n} slots served /metrics (200) with every series for chips "
+          f"0..{n - 1}")
+    return {"step_ms": wall_ms, "event_ms": event_ms, "issue_ms": issue_ms, "busy": busy_share,
+            "peak": peak, "loss_rel": rel}
+
+
+def ring_phase(devices: list, card: str, label: str) -> None:
+    """Ring attention at the workload defaults' shapes (B 16, T 512, 16
+    heads, hd 64) over a (dp, sp) mesh of ``devices``, against the unsharded
+    oracle on the card (one bf16 unit of the output's scale: both compute in
+    f32 from the same bf16 inputs and round once), then one ring train step
+    at the full defaults, its loss finite and within 2^-10 of the plain
+    step's on the same parameters and tokens."""
+    import torch
+
+    from tpudash_torch.models import ring_attention as R
+    from tpudash_torch.models import workload as W
+    from tpudash_torch.parallel.mesh import build_mesh, mesh_axes_for
+
+    n = len(devices)
+    dev = devices[0]
+    sp = mesh_axes_for(n)["tp"]
+    mesh = build_mesh({"dp": n // sp, "sp": sp}, devices)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn((16, 512, 16, 64), generator=g, device=dev).bfloat16() for _ in range(3))
+    got = R.ring_attention(q, k, v, mesh)
+    want = R.reference_attention(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 2.0**-8 * want.float().abs().max().item()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()) and err <= tol,
+          f"ring attention: max err {err:.3e} above {tol:.3e}")
+    t = cuda_ms({"ring": lambda: R.ring_attention(q, k, v, mesh),
+                 "oracle": lambda: R.reference_attention(q, k, v)}, n=5, reps=3)
+    print(f"ring attention over {n} slots ({label}), mesh {mesh.shape} [{card}]: (16, 512, 16, 64) "
+          f"bf16, max err vs the oracle {err:.3e} (tol {tol:.3e}); {t['ring']:.3f} ms a call, "
+          f"oracle {t['oracle']:.3f} ms (CUDA events on {dev})")
+    del q, k, v, got, want
+
+    cfg = W.WorkloadConfig(vocab=2048, d_model=1024, n_heads=16, n_layers=8, d_ff=4096,
+                           seq=512, batch=16)
+    params, opt = W.make_train_state(cfg, g.manual_seed(SEED))
+    batch = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=g, device=dev)
+    with torch.no_grad():
+        plain = W.loss_fn(params, batch, cfg).item()
+    step, shard_inputs = R.make_ring_train_step(mesh, cfg)
+    replicas, ropt = shard_inputs(params, opt)
+    del params, opt
+    loss = step(replicas, ropt, batch).item()
+    check(math.isfinite(loss) and abs(loss - plain) <= 2.0**-10 * plain,
+          f"ring step loss {loss} vs plain {plain} (tol {2.0**-10 * plain:.3e})")
+    for d in _distinct(devices):
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(replicas, ropt, batch)
+    for d in _distinct(devices):
+        torch.cuda.synchronize(d)
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    same = all(torch.equal(a[0], b.to(a[0].device))
+               for a in zip(*(W.leaves(r) for r in replicas)) for b in a[1:])
+    check(same, "ring replicas differ after 4 steps")
+    print(f"  ring train step at the workload defaults: loss at init {loss:.6f} vs the plain "
+          f"step's {plain:.6f} (|diff| {abs(loss - plain):.3e}, tol {2.0**-10 * plain:.3e}); "
+          f"{step_ms:.2f} ms a step (host clock, every device synchronised, 3 steps); "
+          f"replicas bitwise equal after 4 steps")
+
+
 def profile_steps(fn, n: int):
     """(busy share, top 5 kernels by device ms per call, device kernels and
     copies per call) of ``n`` calls of ``fn`` under torch.profiler; (None,
@@ -635,6 +1027,34 @@ def main() -> int:
     print(f"training path: launches {train_counts} (it runs no hand-written kernel, as "
           "the reference runs no Pallas kernel)")
 
+    # -- 7b. the dp×tp sharded step, its source and exporter ------------------------
+    every_gpu = [torch.device("cuda", i) for i in range(n_gpus)]
+    kernels.reset_launch_counts()
+    sharded_phase([dev, dev], card, gen, "rehearsal on one card named twice: the maths of "
+                  "the mesh, not its placement")
+    if n_gpus > 1:
+        sharded_phase(every_gpu, card, gen, f"{n_gpus} distinct GPUs")
+    else:
+        print("sharded step over distinct GPUs: NOT RUN (this machine has 1 GPU); only the "
+              "one-card rehearsal ran")
+    gradient_limit_phase(dev, card)
+    sharded_counts = kernels.launch_counts()
+    check(sharded_counts == {"hbm_read": 0, "hbm_copy": 0},
+          f"sharded path launched a probe kernel: {sharded_counts}")
+    print(f"sharded path: launches {sharded_counts}")
+
+    # -- 7c. ring attention over an sp ring and its train step -------------------------
+    kernels.reset_launch_counts()
+    ring_phase([dev, dev], card, "rehearsal on one card named twice")
+    if n_gpus > 1:
+        ring_phase(every_gpu, card, f"{n_gpus} distinct GPUs")
+    else:
+        print("ring attention over distinct GPUs: NOT RUN (this machine has 1 GPU)")
+    ring_counts = kernels.launch_counts()
+    check(ring_counts == {"hbm_read": 0, "hbm_copy": 0},
+          f"ring path launched a probe kernel: {ring_counts}")
+    print(f"ring path: launches {ring_counts}")
+
     # -- 8. per-kernel times at the main path's shapes ---------------------------
     x = torch.randn((rows, cols), generator=gen_rng, device=dev)
     prev = torch.randn((1, cols), generator=gen_rng, device=dev)
@@ -671,14 +1091,16 @@ def main() -> int:
          "bound_ms": read_bound, "bound_by": read_by, "library_ms": read_t["library"],
          "device_ms": read_dev, "host_us": read_host, "path": "exporter main path",
          "launches_by_path": {"exporter": main_counts["hbm_read"], "bench": bench_counts["hbm_read"],
-                              "inter_gpu": ici_counts["hbm_read"], "training": train_counts["hbm_read"]}},
+                              "inter_gpu": ici_counts["hbm_read"], "training": train_counts["hbm_read"],
+                              "sharded": sharded_counts["hbm_read"], "ring": ring_counts["hbm_read"]}},
         {"name": "hbm_copy", "route": "cuda", "source": "tpudash_torch/ops/csrc/hbm_copy.cu",
          "replaces": "tpudash/ops/probes.py:196", "launches": bench_counts["hbm_copy"],
          "max_abs_err": 0.0, "ms": copy_t["kernel"], "plain_ms": copy_t["plain"],
          "bound_ms": copy_bound, "bound_by": copy_by, "library_ms": copy_t["library"],
          "device_ms": copy_dev, "host_us": copy_host, "path": "probe bench path",
          "launches_by_path": {"exporter": main_counts["hbm_copy"], "bench": bench_counts["hbm_copy"],
-                              "inter_gpu": ici_counts["hbm_copy"], "training": train_counts["hbm_copy"]}},
+                              "inter_gpu": ici_counts["hbm_copy"], "training": train_counts["hbm_copy"],
+                              "sharded": sharded_counts["hbm_copy"], "ring": ring_counts["hbm_copy"]}},
     ]
     def us(v):
         return "not measured" if v is None else f"{v * 1e3:.2f} us"

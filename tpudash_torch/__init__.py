@@ -8,6 +8,7 @@ config fields, the Prometheus text encoder), so an H100 host needs neither
 JAX nor the dashboard installed.  The JAX package stays the reference the
 tests hold this one against.
 
-Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``;
-with no GPU and no such request they raise.
+Entry points run on the host's GPUs (the probe and workload sources on
+every one of them) unless the caller passes ``device="cpu"`` or a list of
+CPU devices; with no GPU and no such request they raise.
 """

@@ -103,18 +103,20 @@ class ExporterServer:
 
 
 def make_app(
-    cfg: Config | None = None, device: "torch.device | str | None" = None
+    cfg: Config | None = None,
+    device: "torch.device | str | None" = None,
+    devices: "list | None" = None,
 ) -> web.Application:
-    """The exporter app over a TorchProbeSource (every local GPU when
-    ``device`` is None) or, for ``source="workload"``, a TorchWorkloadSource
-    (``cuda:0`` when None)."""
+    """The exporter app over a TorchProbeSource or, for
+    ``source="workload"``, a TorchWorkloadSource: on every local GPU when
+    ``device`` and ``devices`` are None, else on ``device`` or ``devices``."""
     cfg = cfg or load_config()
     # "prometheus" is the shared config default: an exporter exports what
     # this host's devices are doing, as in the reference
     if cfg.source in ("prometheus", "probe"):
-        source: MetricsSource = TorchProbeSource(cfg, device=device)
+        source: MetricsSource = TorchProbeSource(cfg, device=device, devices=devices)
     elif cfg.source == "workload":
-        source = TorchWorkloadSource(cfg, device=device)
+        source = TorchWorkloadSource(cfg, device=device, devices=devices)
     else:
         raise ValueError(
             f"the port's exporter serves the probe and workload sources only, "
@@ -127,7 +129,11 @@ def make_app(
     return app
 
 
-def run(cfg: Config | None = None) -> None:  # pragma: no cover - blocking entry
+def run(cfg: Config | None = None) -> None:
+    from tpudash_torch.parallel.distributed import maybe_initialize
+
     configure_logging()
+    # the rendezvous of a torchrun job comes first, as in the reference
+    maybe_initialize()
     cfg = cfg or load_config()
     web.run_app(make_app(cfg), host=cfg.host, port=cfg.exporter_port)

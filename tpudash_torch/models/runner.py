@@ -1,12 +1,14 @@
 """Background workload runner: the counterpart of ``tpudash/models/runner.py``.
 
-Runs the demo transformer's train step in a daemon thread on one device and
-tracks achieved throughput: steps/s, achieved TFLOP/s (analytic FLOPs ÷
-measured step time), and current loss.  The probe source measures what the
-card *can* do; the workload runner shows what it *is* doing.
+Runs the demo transformer's train step in a daemon thread and tracks
+achieved throughput: steps/s, achieved TFLOP/s (analytic FLOPs ÷ measured
+step time), and current loss.  The probe source measures what the card
+*can* do; the workload runner shows what it *is* doing.
 
-On a host with several GPUs it trains on ``cuda:0`` only: the reference's
-dp×tp sharded step is not ported yet.
+It trains on every local GPU: over several devices with the dp×tp sharded
+step on ``build_mesh(mesh_axes_for(n), devices)``, driven from this one
+thread as the reference's ``jax.jit`` over its local mesh is; on one device
+with the plain step.
 """
 
 from __future__ import annotations
@@ -20,25 +22,30 @@ import torch
 from tpudash_torch.models.workload import (
     WorkloadConfig,
     flops_per_step,
+    gather_train_state,
+    make_sharded_train_step,
     make_train_state,
+    shard_plan,
     train_step,
 )
+from tpudash_torch.parallel.mesh import build_mesh, local_devices, mesh_axes_for
 
 _log = logging.getLogger(__name__)
 
 
-def training_device(device: "torch.device | str | None" = None) -> torch.device:
-    """The device the workload trains on: ``device``, else ``cuda:0``;
-    without a GPU and without a device it raises, never picks the CPU."""
+def training_devices(device=None, devices=None) -> list[torch.device]:
+    """The devices the workload trains on: ``[device]``, else ``devices``
+    (a device named twice stands in for two), else every local GPU; without
+    a GPU and without devices it raises, never picks the CPU."""
+    if device is not None and devices is not None:
+        raise ValueError("pass device or devices, not both")
     if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device (pass device='cpu' to train on the CPU)")
-    n = torch.cuda.device_count()
-    if n > 1:
-        _log.info("%d GPUs: the workload trains on cuda:0 only; the dp×tp "
-                  "sharded step is not ported yet", n)
-    return torch.device("cuda", 0)
+        return [torch.device(device)]
+    if devices is not None:
+        if not devices:
+            raise ValueError("devices is empty")
+        return [torch.device(d) for d in devices]
+    return local_devices()
 
 
 class WorkloadRunner:
@@ -49,9 +56,10 @@ class WorkloadRunner:
         checkpoint_dir: str = "",
         checkpoint_every: int = 0,
         device: "torch.device | str | None" = None,
+        devices: "list | None" = None,
     ):
         self.cfg = cfg or WorkloadConfig()
-        self.device = training_device(device)
+        self.devices = training_devices(device, devices)
         #: dispatch this many steps back to back before one host readback:
         #: a per-step readback would idle the card between steps
         self.steps_per_sync = max(1, steps_per_sync)
@@ -93,7 +101,8 @@ class WorkloadRunner:
     # -- training loop -------------------------------------------------------
     def _loop(self) -> None:
         try:
-            cfg, dev = self.cfg, self.device
+            cfg, devs = self.cfg, self.devices
+            dev = devs[0]
             params, optimizer = make_train_state(
                 cfg, torch.Generator(device=dev).manual_seed(0)
             )
@@ -117,6 +126,21 @@ class WorkloadRunner:
                         self.steps = step0
                         self.resumed_from = step0
 
+            if len(devs) > 1:  # a mesh error (batch % dp, …) surfaces as self.error
+                mesh = build_mesh(mesh_axes_for(len(devs)), devs)
+                plan = shard_plan(mesh, cfg)
+                step, shard_inputs = make_sharded_train_step(mesh, cfg)
+                params, optimizer = shard_inputs(params, optimizer)
+
+                def full_state():  # a checkpoint holds the gathered state
+                    return gather_train_state(params, optimizer, plan)
+            else:
+                def step(p, o, t):
+                    return train_step(p, o, t, cfg)
+
+                def full_state():
+                    return params, optimizer
+
             data_gen = torch.Generator(device=dev).manual_seed(1)
             k = self.steps_per_sync
             last_saved = self.steps
@@ -127,7 +151,7 @@ class WorkloadRunner:
                     tokens = torch.randint(
                         0, cfg.vocab, (cfg.batch, cfg.seq), generator=data_gen, device=dev
                     )
-                    loss = train_step(params, optimizer, tokens, cfg)
+                    loss = step(params, optimizer, tokens)
                 loss_val = loss.item()  # readback = true batch boundary
                 dt = (time.perf_counter() - t0) / k
                 with self._lock:
@@ -140,14 +164,14 @@ class WorkloadRunner:
                     )
                 if ckptr and self.steps - last_saved >= self.checkpoint_every:
                     try:
-                        ckptr.save(self.steps, params, optimizer)
+                        ckptr.save(self.steps, *full_state())
                         last_saved = self.steps
                     except Exception as e:  # noqa: BLE001 — disk full etc.
                         _log.warning("checkpoint save failed, disabling: %s", e)
                         ckptr = None
             if ckptr and self.steps > last_saved:
                 try:
-                    ckptr.save(self.steps, params, optimizer)  # final save
+                    ckptr.save(self.steps, *full_state())  # final save
                 except Exception as e:  # noqa: BLE001
                     _log.warning("final checkpoint save failed: %s", e)
         except Exception as e:  # surface crashes to the source, don't die mute

@@ -18,17 +18,26 @@ Attention is written as the reference writes it, two products around a
 masked softmax: a fused attention call would move the rounding points.
 Each layer is recomputed in the backward pass (``torch.utils.checkpoint``,
 as ``jax.checkpoint`` does in the reference), which keeps activation memory
-to about one layer's.  The dp×tp sharded step is not ported.
+to about one layer's.
+
+The dp×tp sharded step (``make_sharded_train_step``) runs over a
+``parallel.mesh.Mesh`` from one process, as the reference's ``jax.jit``
+over a local mesh does.  A sharded leaf is a tuple over the dp rows of a
+tuple over the tp columns of per-device tensors (:class:`ShardPlan`);
+collectives are copies between devices that autograd sees.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from tpudash_torch.parallel.mesh import Mesh
 
 
 @dataclass(frozen=True)
@@ -91,13 +100,30 @@ def params_from_numpy(tree, device) -> dict:
     return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=dtype)
 
 
+def named_leaves(tree: dict, prefix: str = "") -> list:
+    """(dotted name, leaf) pairs of a tree in a fixed order: sorted keys,
+    depth first."""
+    out = []
+    for k in sorted(tree):
+        v, name = tree[k], f"{prefix}{k}"
+        out += named_leaves(v, name + ".") if isinstance(v, dict) else [(name, v)]
+    return out
+
+
 def leaves(params: dict) -> list[torch.Tensor]:
     """The tree's tensors in a fixed order (the optimizer's parameter list)."""
-    out = []
-    for k in sorted(params):
-        v = params[k]
-        out += leaves(v) if isinstance(v, dict) else [v]
-    return out
+    return [v for _, v in named_leaves(params)]
+
+
+def _unflatten(pairs) -> dict:
+    tree: dict = {}
+    for name, v in pairs:
+        *path, last = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return tree
 
 
 # --- forward ----------------------------------------------------------------
@@ -119,14 +145,17 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(probs, v)
 
 
+def _heads(qkv: torch.Tensor, hd: int) -> torch.Tensor:
+    """Attention over the heads of ``qkv`` (B, T, 3·w), whose thirds hold
+    the q, k and v columns of w / hd whole heads → (B, T, w)."""
+    B, T, w3 = qkv.shape
+    w = w3 // 3
+    q, k, v = (t.reshape(B, T, w // hd, hd).transpose(1, 2) for t in qkv.split(w, dim=-1))
+    return _sdpa(q, k, v).transpose(1, 2).reshape(B, T, w)
+
+
 def _attention(x: torch.Tensor, wqkv: torch.Tensor, wo: torch.Tensor, cfg: WorkloadConfig) -> torch.Tensor:
-    B, T, d = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
-    qkv = torch.matmul(x, wqkv)
-    q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2) for t in qkv.split(d, dim=-1))
-    out = _sdpa(q, k, v)
-    out = out.transpose(1, 2).reshape(B, T, d)
-    return torch.matmul(out, wo)
+    return torch.matmul(_heads(torch.matmul(x, wqkv), cfg.head_dim), wo)
 
 
 def _mlp(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
@@ -162,13 +191,15 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: WorkloadConfig) -> torch.Te
 
 # --- training ---------------------------------------------------------------
 
+def _adamw(tensors: list, cfg: WorkloadConfig) -> torch.optim.AdamW:
+    return torch.optim.AdamW(tensors, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+
+
 def make_optimizer(params: dict, cfg: WorkloadConfig) -> torch.optim.AdamW:
     """``optax.adamw(lr, weight_decay=0.01)``: AdamW over EVERY parameter,
     norms and embeddings included (optax masks nothing), with moments in
     the parameters' own dtype (bf16 for the weights), as optax keeps them."""
-    return torch.optim.AdamW(
-        leaves(params), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01
-    )
+    return _adamw(leaves(params), cfg)
 
 
 def make_train_state(cfg: WorkloadConfig, generator: torch.Generator):
@@ -189,6 +220,360 @@ def train_step(params: dict, optimizer: torch.optim.Optimizer, tokens: torch.Ten
     loss.backward()
     optimizer.step()
     return loss.detach()
+
+
+# --- dp×tp sharding -----------------------------------------------------------
+
+#: the dim of each leaf that splits over tp, None for a replicated leaf, as
+#: ``tpudash/models/workload.py::param_shardings`` gives it (Megatron-style:
+#: qkv and up column-parallel, o and down row-parallel, the embedding on the
+#: model dim, the unembed on the vocabulary, norms replicated; the
+#: layer-stack dim never split)
+TP_DIMS = {
+    "embed": 1,
+    "blocks.ln1": None,
+    "blocks.wqkv": 2,
+    "blocks.wo": 1,
+    "blocks.ln2": None,
+    "blocks.w_up": 2,
+    "blocks.w_down": 1,
+    "ln_f": None,
+    "unembed": 1,
+}
+
+
+@dataclass(frozen=True)
+class ShardPlan:
+    """Where each parameter of ``cfg`` lives on a (dp, tp) mesh.
+
+    Row r of the mesh is one data-parallel replica.  Its first device, the
+    row's home, holds the residual stream, the norms and the loss; column c
+    holds shard c of each tp-split leaf.  ``wqkv`` splits by heads when the
+    heads divide over tp: shard c holds the q, k and v columns of heads
+    c·H/tp to (c+1)·H/tp − 1, so that attention runs where the shard lies.
+    When they do not, it splits in contiguous column blocks, as the
+    reference's ``P(None, None, "tp")`` lays it out, and the row's home
+    gathers qkv and runs attention.  Either way a shard has the
+    reference's shard shape.
+    """
+
+    mesh: Mesh
+    cfg: WorkloadConfig
+
+    @property
+    def dp(self) -> int:
+        return self.mesh.shape["dp"]
+
+    @property
+    def tp(self) -> int:
+        return self.mesh.shape["tp"]
+
+    @property
+    def heads_aligned(self) -> bool:
+        return self.cfg.n_heads % self.tp == 0
+
+    def device(self, row: int, col: int = 0) -> torch.device:
+        return self.mesh.devices[row * self.tp + col]
+
+    def split(self, name: str, full: torch.Tensor) -> list:
+        """The shards of the full leaf ``name`` on its device (views where
+        a slice will do): tp of them, or the leaf itself for a replicated
+        leaf."""
+        dim = TP_DIMS[name]
+        if dim is None:
+            return [full]
+        if name == "blocks.wqkv" and self.heads_aligned:
+            d = self.cfg.d_model
+            w = d // self.tp
+            return [torch.cat([full.narrow(dim, j * d + c * w, w) for j in range(3)], dim)
+                    for c in range(self.tp)]
+        return list(full.chunk(self.tp, dim))
+
+    def join(self, name: str, parts: list) -> torch.Tensor:
+        """The inverse of :meth:`split`: a new full leaf on the first
+        shard's device."""
+        dim = TP_DIMS[name]
+        parts = [p.to(parts[0].device) for p in parts]
+        if dim is None:
+            return parts[0].clone()
+        if name == "blocks.wqkv" and self.heads_aligned:
+            w = self.cfg.d_model // self.tp
+            return torch.cat([p.narrow(dim, j * w, w) for j in range(3) for p in parts], dim)
+        return torch.cat(parts, dim)
+
+
+def shard_plan(mesh: Mesh, cfg: WorkloadConfig) -> ShardPlan:
+    """The plan of ``cfg`` on a (dp, tp) mesh.  A dimension that does not
+    split evenly over its axis raises ValueError, as the reference's
+    ``device_put`` refuses it; nothing is resized."""
+    if mesh.axis_names != ("dp", "tp"):
+        raise ValueError(f"the sharded step needs a (dp, tp) mesh, not {mesh.axis_names}")
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    for what, size, axis, n in (("batch", cfg.batch, "dp", dp), ("d_model", cfg.d_model, "tp", tp),
+                                ("d_ff", cfg.d_ff, "tp", tp), ("vocab", cfg.vocab, "tp", tp)):
+        if size % n:
+            raise ValueError(f"{what} {size} does not split over the {axis} axis of size {n}")
+    return ShardPlan(mesh, cfg)
+
+
+def shard_params(tree: dict, plan: ShardPlan) -> dict:
+    """The full tree's shards, each a tensor of its own on the device the
+    plan names: every leaf becomes a tuple over the dp rows of a tuple over
+    its shards (tp of them, or one on the row's home for a norm)."""
+    out = []
+    for name, full in named_leaves(tree):
+        parts = plan.split(name, full.detach())
+        out.append((name, tuple(
+            tuple(p.to(plan.device(r, c), copy=True).contiguous() for c, p in enumerate(parts))
+            for r in range(plan.dp))))
+    return _unflatten(out)
+
+
+def gather_params(sharded: dict, plan: ShardPlan) -> dict:
+    """The full tree from row 0's shards, as new tensors on row 0's home."""
+    return _unflatten((name, plan.join(name, [p.detach() for p in rows[0]]))
+                      for name, rows in named_leaves(sharded))
+
+
+def shard_leaves(sharded: dict) -> list[torch.Tensor]:
+    """Every shard of a sharded tree, in leaf order, then row, then column
+    (the sharded optimizer's parameter list)."""
+    return [p for _, rows in named_leaves(sharded) for row in rows for p in row]
+
+
+def shard_optimizer_state(state: dict, sharded: dict, plan: ShardPlan) -> dict:
+    """``state_dict()`` of an optimizer over the full tree as that of one
+    over ``shard_leaves(sharded)``: each moment split as its parameter is,
+    every shard's state a set of tensors of its own on its device (the
+    optimizer updates them in place)."""
+    out, j = {}, 0
+    for i, (name, rows) in enumerate(named_leaves(sharded)):
+        st = state["state"].get(i)
+        parts = None if st is None else {
+            k: plan.split(name, st[k]) for k in ("exp_avg", "exp_avg_sq")}
+        for r in range(plan.dp):
+            for c in range(len(rows[0])):
+                if st is not None:
+                    dev = plan.device(r, c)
+                    out[j] = {"step": st["step"].clone(), **{
+                        k: v[c].to(dev, copy=True).contiguous() for k, v in parts.items()}}
+                j += 1
+    groups = [{**g, "params": list(range(j))} for g in state["param_groups"]]
+    return {"state": out, "param_groups": groups}
+
+
+def gather_optimizer_state(optimizer: torch.optim.Optimizer, sharded: dict,
+                           plan: ShardPlan) -> dict:
+    """The inverse of :func:`shard_optimizer_state`: the ``state_dict()``
+    an optimizer over the full tree would have, from row 0's shards."""
+    sd = optimizer.state_dict()
+    out, j, names = {}, 0, named_leaves(sharded)
+    for i, (name, rows) in enumerate(names):
+        k = len(rows[0])
+        sts = [sd["state"].get(x) for x in range(j, j + k)]
+        j += k * plan.dp
+        if sts[0] is not None:
+            out[i] = {"step": sts[0]["step"], **{
+                m: plan.join(name, [s[m] for s in sts]) for m in ("exp_avg", "exp_avg_sq")}}
+    groups = [{**g, "params": list(range(len(names)))} for g in sd["param_groups"]]
+    return {"state": out, "param_groups": groups}
+
+
+def gather_train_state(sharded: dict, optimizer: torch.optim.Optimizer, plan: ShardPlan):
+    """The inverse of ``shard_inputs``: the full tree on row 0's home and an
+    AdamW over it holding the moments an unsharded optimizer would.  A
+    checkpoint saves this, so that it is the same whatever the mesh."""
+    params = gather_params(sharded, plan)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    opt = make_optimizer(params, plan.cfg)
+    opt.load_state_dict(gather_optimizer_state(optimizer, sharded, plan))
+    return params, opt
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The 2-D product of bf16 operands with an f32 result: exact products,
+    f32 sums (the tensor cores' bf16 product with an f32 output on the GPU,
+    the same in f32 arithmetic on the CPU, which has no such product)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1])
+
+
+class _RowParallel(torch.autograd.Function):
+    """A row-parallel shard's partial product ``x @ w`` of bf16 operands,
+    kept in f32 so that the partials add up to what the unsharded bf16
+    product rounds once (a partial rounded to bf16 would round twice).  Its
+    gradient arrives from that one rounding, so it is exact in bf16, and
+    the backward is the bf16 product's."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(_flat(x), w).reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        return torch.matmul(g, w.t()), torch.matmul(_flat(x).t(), _flat(g))
+
+
+class _ColumnParallel(torch.autograd.Function):
+    """``x`` (bf16, on the row's home) times each column shard ``ws[c]`` on
+    that shard's device: the unsharded bf16 product, one column block per
+    device.  The backward adds the shards' gradients of ``x`` in f32 on the
+    home and rounds once, as the unsharded product's one backward product
+    does (autograd would add them rounded, in bf16)."""
+
+    @staticmethod
+    def forward(ctx, x, *ws):
+        xs = [x.to(w.device) for w in ws]
+        ctx.save_for_backward(*xs, *ws)
+        return tuple(torch.matmul(xc, w) for xc, w in zip(xs, ws))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        saved = ctx.saved_tensors  # unpack once: checkpoint allows no more
+        xs, ws = saved[:len(gs)], saved[len(gs):]
+        home = xs[0].device
+        gx, gws = None, []
+        for xc, w, g in zip(xs, ws, gs):
+            part = _mm_f32(_flat(g), w.t()).to(home)
+            gx = part if gx is None else gx + part
+            gws.append(torch.matmul(_flat(xc).t(), _flat(g)))
+        return (gx.reshape(xs[0].shape).to(torch.bfloat16), *gws)
+
+
+def _reduce(parts: list, home: torch.device) -> torch.Tensor:
+    """The sum of f32 partials on ``home``, in column order, rounded to
+    bf16 once."""
+    acc = parts[0].to(home)
+    for p in parts[1:]:
+        acc = acc + p.to(home)
+    return acc.to(torch.bfloat16)
+
+
+def checkpoint_across_devices(fn, *tensors):
+    """``checkpoint(fn, *tensors)`` for a function that runs on several
+    devices, in the reentrant form.  Autograd runs a backward on one thread
+    per device, and the non-reentrant form then recomputes ``fn`` from
+    several of them at once, which it does not support ("early_stop is
+    set"); the reentrant form recomputes once, in the thread of its one
+    backward node.  It tracks the gradients of top-level tensor arguments
+    only, so ``fn`` takes every tensor flat."""
+    return checkpoint(fn, *tensors, use_reentrant=True)
+
+
+def _sharded_block(cfg, aligned, h, ln1, ln2, *shards):
+    """One layer over a dp row's tp devices: ``h`` lies on the row's home
+    with the norms, and ``shards`` are the layer's wqkv, wo, w_up and w_down
+    shards, tp of each in column order, each on its device."""
+    home = h.device
+    wqkv, wo, w_up, w_down = (shards[i::4] for i in range(4))
+    qkv = _ColumnParallel.apply(_rmsnorm(h, ln1), *wqkv)
+    if aligned:  # each column attends over its own heads
+        outs = [_heads(t, cfg.head_dim) for t in qkv]
+    else:  # the home gathers qkv's column blocks and attends over every head
+        out = _heads(torch.cat([t.to(home) for t in qkv], -1), cfg.head_dim)
+        outs = [o.to(w.device) for o, w in zip(out.chunk(len(wo), -1), wo)]
+    h = h + _reduce([_RowParallel.apply(o, w) for o, w in zip(outs, wo)], home)
+    ups = _ColumnParallel.apply(_rmsnorm(h, ln2), *w_up)
+    return h + _reduce([_RowParallel.apply(F.gelu(u, approximate="tanh"), w)
+                        for u, w in zip(ups, w_down)], home)
+
+
+def _row_logits(sharded: dict, tokens: torch.Tensor, plan: ShardPlan, row: int) -> torch.Tensor:
+    """The forward of dp row ``row`` on its tokens → f32 logits on its home."""
+    home = plan.device(row)
+    x = torch.cat([e[tokens.to(e.device)].to(home) for e in sharded["embed"][row]], -1)
+    b = sharded["blocks"]
+    block = functools.partial(_sharded_block, plan.cfg, plan.heads_aligned)
+    for layer in range(plan.cfg.n_layers):
+        shards = [t[layer] for cols in zip(*(b[n][row] for n in ("wqkv", "wo", "w_up", "w_down")))
+                  for t in cols]
+        x = checkpoint_across_devices(block, x, b["ln1"][row][0][layer], b["ln2"][row][0][layer],
+                                      *shards)
+    # cast once on the home, so that the shards' gradients add up in f32
+    x = _rmsnorm(x, sharded["ln_f"][row][0]).float()
+    return torch.cat([torch.matmul(x.to(u.device), u.float()).to(home)
+                      for u in sharded["unembed"][row]], -1)
+
+
+def sharded_loss_fn(sharded: dict, tokens: torch.Tensor, plan: ShardPlan) -> torch.Tensor:
+    """:func:`loss_fn` over the mesh: the batch splits over the dp rows, and
+    the loss, on the mesh's first device, is the mean of the rows' means
+    (equal shares, so the reference's mean over the whole batch)."""
+    if tokens.shape[0] % plan.dp:
+        raise ValueError(f"batch {tokens.shape[0]} does not split over the dp axis of size {plan.dp}")
+    dev0 = plan.device(0)
+    losses = []
+    for r, rows in enumerate(tokens.chunk(plan.dp, 0)):
+        rows = rows.to(plan.device(r))
+        logp = torch.log_softmax(_row_logits(sharded, rows[:, :-1], plan, r), dim=-1)
+        losses.append(-logp.gather(-1, rows[:, 1:, None]).squeeze(-1).mean().to(dev0))
+    return torch.stack(losses).mean()
+
+
+def sum_replica_grads(replicas: list) -> None:
+    """Give every replica of one tensor the sum of their gradients: added
+    in f32 in replica order on the first one's device, rounded once to the
+    parameter's dtype and copied to each, so the replicas stay bitwise
+    equal through the optimizer's step."""
+    if len(replicas) == 1:
+        return
+    home = replicas[0].device
+    g = replicas[0].grad.float()
+    for p in replicas[1:]:
+        g = g + p.grad.to(home).float()
+    g = g.to(replicas[0].dtype)
+    for p in replicas:
+        p.grad = g.to(p.device)
+
+
+def make_sharded_train_step(mesh: Mesh, cfg: WorkloadConfig):
+    """The train step over a (dp, tp) mesh, driven from one process:
+    parameters and their AdamW moments tp-sharded by :func:`shard_plan`,
+    the batch split over dp rows, each layer recomputed in backward.  After
+    backward each shard's gradient is summed over the dp rows (the loss is
+    already the rows' mean, so this is the reference's dp all-reduce of the
+    mean), and every row runs the same AdamW update: the replicas stay
+    bitwise equal.
+
+    Returns ``(step, shard_inputs)``.  ``shard_inputs(params, optimizer)``
+    turns a full train state (``make_train_state``; its optimizer may hold
+    restored moments) into ``(sharded, sharded_optimizer)``;
+    ``step(sharded, sharded_optimizer, tokens)`` updates them in place and
+    returns the loss before the update, a 0-d tensor on the mesh's first
+    device.  The tokens may lie on any device: the step places each row's.
+    """
+    plan = shard_plan(mesh, cfg)
+
+    def shard_inputs(params: dict, optimizer: "torch.optim.Optimizer | None"):
+        sharded = shard_params(params, plan)
+        tensors = shard_leaves(sharded)
+        for t in tensors:
+            t.requires_grad_(True)
+        opt = _adamw(tensors, cfg)
+        if optimizer is not None and optimizer.state:
+            opt.load_state_dict(shard_optimizer_state(optimizer.state_dict(), sharded, plan))
+        return sharded, opt
+
+    def step(sharded: dict, optimizer: torch.optim.Optimizer, tokens: torch.Tensor) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = sharded_loss_fn(sharded, tokens, plan)
+        loss.backward()
+        for _, rows in named_leaves(sharded):
+            for c in range(len(rows[0])):
+                sum_replica_grads([row[c] for row in rows])
+        optimizer.step()
+        return loss.detach()
+
+    return step, shard_inputs
 
 
 def flops_per_step(cfg: WorkloadConfig) -> float:

@@ -4,7 +4,9 @@ Trains the demo transformer continuously in the background and reports
 what the card is actually doing: utilisation derived from achieved step
 FLOP/s (divided by the H100 record's peak), device-memory occupancy from
 the allocator, and the workload's own series (loss, steps/s, TFLOP/s).
-It trains on one device and emits that device's samples as ``chip_id`` 0.
+It trains over every local GPU (the runner's dp×tp mesh) and emits each
+device as its own ``chip_id``, as the reference does: utilisation is the
+achieved TFLOP/s ÷ n ÷ peak, and memory is that device's.
 
 Workload sizing comes from ``Config.extra`` with the reference's
 ``workload_*`` keys and defaults.
@@ -38,7 +40,12 @@ WORKLOAD_TFLOPS = "tpu_workload_achieved_tflops"
 class TorchWorkloadSource(MetricsSource):
     name = "workload"
 
-    def __init__(self, cfg: Config, device: "torch.device | str | None" = None):
+    def __init__(
+        self,
+        cfg: Config,
+        device: "torch.device | str | None" = None,
+        devices: "list | None" = None,
+    ):
         from tpudash_torch.models.runner import WorkloadRunner
         from tpudash_torch.models.workload import WorkloadConfig
 
@@ -57,7 +64,11 @@ class TorchWorkloadSource(MetricsSource):
             steps_per_sync=int(cfg.extra.get("workload_steps_per_sync", 8)),
             checkpoint_dir=cfg.workload_checkpoint_dir,
             checkpoint_every=cfg.workload_checkpoint_every,
+            # None trains on every local GPU; ``device`` ("cpu" in the tests)
+            # on that one; ``devices`` on that list, a device named twice
+            # standing in for two (["cuda:0"] * 2 rehearses the mesh on one card)
             device=device,
+            devices=devices,
         )
 
     def fetch(self):
@@ -70,30 +81,34 @@ class TorchWorkloadSource(MetricsSource):
         except RuntimeError as e:
             raise SourceError(str(e)) from e
 
-        dev = self.runner.device
-        name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else ""
+        devices = self.runner.devices
+        name = torch.cuda.get_device_name(devices[0]) if devices[0].type == "cuda" else ""
         gen = (
             resolve_generation_from_device_name(name)
             or resolve_generation(self.cfg.generation)
             or DEFAULT_GENERATION
         )
-        util = min(100.0, m["achieved_tflops"] / gen.peak_bf16_tflops * 100.0)
-        mem = hbm_memory_stats(dev)
-        total = mem["total_bytes"] or gen.hbm_gib * 1024**3
-        chip = ChipKey(slice_id="local", host="localhost", chip_id=0)
-        samples = [
-            Sample(metric=metric, value=float(value), chip=chip,
-                   accelerator_type=gen.accelerator_types[0])
-            for metric, value in (
-                (TENSORCORE_UTIL, util),
-                (HBM_USED, mem["used_bytes"]),
-                (HBM_TOTAL, total),
-                (WORKLOAD_LOSS, m["loss"]),
-                (WORKLOAD_STEPS_PER_S, m["steps_per_second"]),
-                (WORKLOAD_TFLOPS, m["achieved_tflops"]),
-            )
-            if value == value  # skip NaN (no step completed yet)
-        ]
+        # the sharded step spreads its FLOPs over every device of the mesh
+        per_chip_tflops = m["achieved_tflops"] / len(devices)
+        util = min(100.0, per_chip_tflops / gen.peak_bf16_tflops * 100.0)
+        samples = []
+        for i, dev in enumerate(devices):
+            chip = ChipKey(slice_id="local", host="localhost", chip_id=i)
+            mem = hbm_memory_stats(dev)
+            total = mem["total_bytes"] or gen.hbm_gib * 1024**3
+            samples += [
+                Sample(metric=metric, value=float(value), chip=chip,
+                       accelerator_type=gen.accelerator_types[0])
+                for metric, value in (
+                    (TENSORCORE_UTIL, util),
+                    (HBM_USED, mem["used_bytes"]),
+                    (HBM_TOTAL, total),
+                    (WORKLOAD_LOSS, m["loss"]),
+                    (WORKLOAD_STEPS_PER_S, m["steps_per_second"]),
+                    (WORKLOAD_TFLOPS, per_chip_tflops),
+                )
+                if value == value  # skip NaN (no step completed yet)
+            ]
         if not samples:
             raise SourceError("workload has not produced metrics yet")
         return samples
