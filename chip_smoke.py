@@ -27,6 +27,12 @@ From the root of a checkout, on a host with one H100:
    chip_id 0 and 1; then ring attention at the defaults' shapes over an sp
    ring of the same two slots against its oracle, and one ring train step;
    each of these over every GPU too when there are several;
+7d. drives the pipeline paths at the same defaults: GPipe at dp 1 × pp 2
+   and dp 2 × pp 2 (M = 4), the 3D step at dp 1 × pp 2 × tp 2 (M = 2), each
+   against the unsharded loss and gradients; the MoE at the workload's
+   widths at ep 1 and ep 2, its expert FFN against the dense oracle; the
+   dry run over the card named 2 and 4 times; each over every GPU too when
+   there are several;
 8. times each kernel at the main path's shapes beside its bound, its plain
    version and one PyTorch call computing the same function, and the host
    time of one wrapper call;
@@ -60,6 +66,14 @@ F32_PEAK_TFLOPS = {"h100-sxm": 67.0, "h100-pcie": 51.0}
 MAX_SHARE_OF_PEAK = 1.05
 F32_U = 2.0**-24
 BF16_U = 2.0**-9
+#: the workload source's defaults (tpudash/sources/workload.py:50-57), the
+#: widest configuration the repo trains
+WORKLOAD_DEFAULTS = dict(vocab=2048, d_model=1024, n_heads=16, n_layers=8, d_ff=4096, seq=512,
+                         batch=16)
+#: the MoE at the workload's widths, as __graft_entry__.py:160-164 builds its
+#: MoE config from the workload config's
+MOE_DEFAULTS = dict(vocab=2048, d_model=1024, d_ff=4096, n_experts=8, seq=512, batch=16, top_k=1,
+                    capacity_factor=1.25)
 
 
 class SmokeFailure(RuntimeError):
@@ -251,8 +265,7 @@ def training_phase(dev, card: str, gen) -> None:
 
     src = TorchWorkloadSource(Config(source="workload"), device=dev)
     cfg = src.runner.cfg
-    check(cfg == W.WorkloadConfig(vocab=2048, d_model=1024, n_heads=16, n_layers=8, d_ff=4096,
-                                  seq=512, batch=16), f"workload defaults {cfg}")
+    check(cfg == W.WorkloadConfig(**WORKLOAD_DEFAULTS), f"workload defaults {cfg}")
     flops = W.flops_per_step(cfg)
 
     # (a) the card's loss on one sequence against the port's own CPU forward
@@ -468,8 +481,7 @@ def gradient_limit_phase(dev, card: str) -> None:
     from tpudash_torch.models import workload as W
     from tpudash_torch.parallel.mesh import build_mesh
 
-    cfg = W.WorkloadConfig(vocab=2048, d_model=1024, n_heads=16, n_layers=8, d_ff=4096,
-                           seq=512, batch=16)
+    cfg = W.WorkloadConfig(**WORKLOAD_DEFAULTS)
     gen_t = torch.Generator(device=dev).manual_seed(SEED)
     params, _ = W.make_train_state(cfg, gen_t)
     batch = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=gen_t, device=dev)
@@ -591,8 +603,7 @@ def sharded_phase(devices: list, card: str, gen, label: str) -> dict:
 
     n = len(devices)
     dev = devices[0]
-    cfg = W.WorkloadConfig(vocab=2048, d_model=1024, n_heads=16, n_layers=8, d_ff=4096,
-                           seq=512, batch=16)
+    cfg = W.WorkloadConfig(**WORKLOAD_DEFAULTS)
     flops = W.flops_per_step(cfg)
     mesh = build_mesh(mesh_axes_for(n), devices)
     plan = W.shard_plan(mesh, cfg)
@@ -623,44 +634,13 @@ def sharded_phase(devices: list, card: str, gen, label: str) -> dict:
     print(f"  after one step: {summary}")
     del params, opt, p0, grads
 
-    for d in _distinct(devices):
-        torch.cuda.synchronize(d)
-        torch.cuda.reset_peak_memory_stats(d)
-    base = {str(d): torch.cuda.memory_allocated(d) for d in _distinct(devices)}
-    for _ in range(2):
-        step(sharded, sopt, batch)
-    steps = 10
-    for d in _distinct(devices):
-        torch.cuda.synchronize(d)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(steps):
-        loss = step(sharded, sopt, batch)
-    issue_ms = (time.perf_counter() - t0) / steps * 1e3
-    end.record()
-    for d in _distinct(devices):
-        torch.cuda.synchronize(d)
-    wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    event_ms = start.elapsed_time(end) / steps
-    check(math.isfinite(loss.item()), "sharded loss went non-finite")
-    peak = {str(d): torch.cuda.max_memory_allocated(d) for d in _distinct(devices)}
-    busy, top, launches = profile_steps(lambda: step(sharded, sopt, batch), 3)
-    busy_share = None if busy is None else busy / len(_distinct(devices))
+    t = step_timings(lambda: step(sharded, sopt, batch), devices, 10)
+    check(math.isfinite(t["last"].item()), "sharded loss went non-finite")
     del sharded, sopt
-    print(f"  [{card}]: step {wall_ms:.3f} ms (host clock, every device synchronised; "
-          f"{flops / wall_ms / 1e9:.2f} TFLOP/s counted, {flops / wall_ms / 1e9 / n:.2f} per slot), "
-          f"{event_ms:.3f} ms by CUDA events on {dev}; host issue time {issue_ms:.3f} ms a step")
-    print(f"  peak max_memory_allocated per device: "
-          + "; ".join(f"{d} {peak[d]} B ({(peak[d] - base[d]) / 2**30:.2f} GiB above the "
-                      f"{base[d]} B held before the steps)" for d in peak))
-    if busy_share is None:
-        print("  device busy share: not measured (the profiler recorded no device time)")
-    else:
-        print(f"  device busy share over 3 steps (profiler; device time ÷ wall ÷ "
-              f"{len(_distinct(devices))} distinct devices): {100 * busy_share:.2f} %; "
-              f"{launches:.0f} device kernels and copies a step; top by device time per step: "
-              + "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top))
+    wall_ms = t["step_ms"]
+    print_timings(t, card, 10)
+    print(f"  {flops / wall_ms / 1e9:.2f} TFLOP/s counted at the host-clock step time, "
+          f"{flops / wall_ms / 1e9 / n:.2f} per slot")
 
     # TorchWorkloadSource over the same devices: one chip_id per slot
     src = TorchWorkloadSource(Config(source="workload"), devices=devices)
@@ -716,8 +696,7 @@ def sharded_phase(devices: list, card: str, gen, label: str) -> dict:
         check(chips == list(range(n)), f"/metrics over {n} slots: {name} lines {lines}")
     print(f"  exporter over {n} slots served /metrics (200) with every series for chips "
           f"0..{n - 1}")
-    return {"step_ms": wall_ms, "event_ms": event_ms, "issue_ms": issue_ms, "busy": busy_share,
-            "peak": peak, "loss_rel": rel}
+    return {**t, "loss_rel": rel}
 
 
 def ring_phase(devices: list, card: str, label: str) -> None:
@@ -752,8 +731,7 @@ def ring_phase(devices: list, card: str, label: str) -> None:
           f"oracle {t['oracle']:.3f} ms (CUDA events on {dev})")
     del q, k, v, got, want
 
-    cfg = W.WorkloadConfig(vocab=2048, d_model=1024, n_heads=16, n_layers=8, d_ff=4096,
-                           seq=512, batch=16)
+    cfg = W.WorkloadConfig(**WORKLOAD_DEFAULTS)
     params, opt = W.make_train_state(cfg, g.manual_seed(SEED))
     batch = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=g, device=dev)
     with torch.no_grad():
@@ -779,6 +757,221 @@ def ring_phase(devices: list, card: str, label: str) -> None:
           f"step's {plain:.6f} (|diff| {abs(loss - plain):.3e}, tol {2.0**-10 * plain:.3e}); "
           f"{step_ms:.2f} ms a step (host clock, every device synchronised, 3 steps); "
           f"replicas bitwise equal after 4 steps")
+
+
+def step_timings(run, devices: list, steps: int) -> dict:
+    """``steps`` calls of one train step ``run`` over ``devices``, after one
+    warm call: ms a step by the host clock with every device synchronised
+    and by CUDA events on the current device, the host's time to issue a
+    step, the peak memory per distinct device above what it held before,
+    the last call's result, and over 2 more calls the busy share a device
+    and the device kernels and copies a step (profiler)."""
+    import torch
+
+    distinct = _distinct(devices)
+    for d in distinct:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    base = {str(d): torch.cuda.memory_allocated(d) for d in distinct}
+    run()
+    for d in distinct:
+        torch.cuda.synchronize(d)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        last = run()
+    issue_ms = (time.perf_counter() - t0) / steps * 1e3
+    end.record()
+    for d in distinct:
+        torch.cuda.synchronize(d)
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    peak = {str(d): torch.cuda.max_memory_allocated(d) - base[str(d)] for d in distinct}
+    busy, top, ops = profile_steps(run, 2)
+    return {"step_ms": wall_ms, "event_ms": start.elapsed_time(end) / steps, "issue_ms": issue_ms,
+            "peak_above_base": peak, "busy": None if busy is None else busy / len(distinct),
+            "ops": ops, "top": top, "steps": steps + 3, "last": last}
+
+
+def print_timings(t: dict, card: str, steps: int) -> None:
+    print(f"  [{card}]: step {t['step_ms']:.3f} ms (host clock, every device synchronised, "
+          f"{steps} steps), {t['event_ms']:.3f} ms by CUDA events; host issue {t['issue_ms']:.3f} ms "
+          f"a step; peak max_memory_allocated above base per device: "
+          + "; ".join(f"{d} {b / 2**30:.3f} GiB" for d, b in t["peak_above_base"].items()))
+    if t["busy"] is None:
+        print("  device busy share: not measured (the profiler recorded no device time)")
+    else:
+        print(f"  busy share a device over 2 steps (profiler) {100 * t['busy']:.2f} %; {t['ops']:.0f} "
+              f"device kernels and copies a step; top: "
+              + "; ".join(f"{name[:48]} {ms:.3f} ms" for name, ms in t["top"][:3]))
+
+
+def _check_placement(sharded: dict, plan) -> None:
+    from tpudash_torch.models import workload as W
+
+    for name, rows in W.named_leaves(sharded):
+        for r, row in enumerate(rows):
+            for i, t in enumerate(row):
+                want = plan.part_device(name, r, i)
+                check(t.device == want, f"{name}[{r}][{i}] on {t.device}, the plan names {want}")
+
+
+def pipeline_phase(devices: list, card: str, label: str, axes: dict, microbatches: int) -> dict:
+    """The GPipe step (axes dp, pp) or the 3D step (dp, pp, tp) at the
+    workload source's full defaults over ``devices``: each part on the
+    device its plan names; the loss against the unsharded loss on the same
+    parameters and tokens (rtol 1e-4, or 5e-3 in 3D: the reference's own
+    bounds, tests/test_pipeline.py:49, :100); each leaf's gradient within
+    :data:`GRAD_LIMIT` of the unsharded one's (in 3D, of its
+    ``convert_params_3d``); dp replicas bitwise equal after a step; step
+    time, host issue, busy share and peak memory; the loss lower after 8
+    steps on one batch."""
+    import torch
+
+    from tpudash_torch.models import pipeline as PL
+    from tpudash_torch.models import workload as W
+    from tpudash_torch.parallel.mesh import build_mesh
+
+    dev = devices[0]
+    three_d = "tp" in axes
+    cfg = W.WorkloadConfig(**WORKLOAD_DEFAULTS)
+    mesh = build_mesh(axes, devices)
+    plan = PL.pipeline_plan(mesh, cfg)
+    what = "3D step" if three_d else "pipeline"
+    print(f"{what} over {len(devices)} slots ({label}) [{card}]: mesh {mesh.shape}, M = {microbatches}")
+    gen_t = torch.Generator(device=dev).manual_seed(SEED)
+    params, _ = W.make_train_state(cfg, gen_t)
+    batch = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=gen_t, device=dev)
+    make = PL.make_pipeline3d_train_step if three_d else PL.make_pipeline_train_step
+    step, shard_inputs = make(mesh, cfg, microbatches)
+    sharded, sopt = shard_inputs(PL.convert_params_3d(params) if three_d else params, None)
+    _check_placement(sharded, plan)
+    loss_pp = step(sharded, sopt, batch).item()
+    loss_un = W.loss_fn(params, batch, cfg)
+    loss_un.backward()
+    loss_un = loss_un.item()
+    rtol = 5e-3 if three_d else 1e-4
+    rel = abs(loss_pp - loss_un) / loss_un
+    check(math.isfinite(loss_pp) and rel <= rtol,
+          f"{what} loss {loss_pp} vs unsharded {loss_un} (rel {rel:.3e} above {rtol})")
+    plain = W._unflatten((name, t.grad) for name, t in W.named_leaves(params))
+    plain = dict(W.named_leaves(PL.convert_params_3d(plain) if three_d else plain))
+    got = {name: plan.join(name, [t.grad for t in rows[0]]) for name, rows in W.named_leaves(sharded)}
+    rels = grad_rel(got, plain)
+    for name, r in rels.items():
+        check(r <= GRAD_LIMIT, f"{what} {name}: gradient off the unsharded one's by {r:.3e} (> 2^-6)")
+    for name, rows in W.named_leaves(sharded):
+        for c, part in enumerate(rows[0]):
+            check(all(torch.equal(part, row[c].to(part.device)) for row in rows[1:]),
+                  f"{what} {name}[*][{c}]: dp replicas differ after a step")
+    del params, plain, got
+    print(f"  every part on the device the plan names; loss at init {loss_pp:.6f} vs unsharded "
+          f"{loss_un:.6f} (rel {rel:.3e}, rtol {rtol}); gradient rel. diff "
+          + ", ".join(f"{n.split('.')[-1]} {v:.1e}" for n, v in rels.items())
+          + f" (limit {GRAD_LIMIT:.3e}); dp replicas bitwise equal")
+    t = step_timings(lambda: step(sharded, sopt, batch), devices, 4)
+    print_timings(t, card, 4)
+    done = 1 + t["steps"]
+    loss_n = step(sharded, sopt, batch).item()
+    check(math.isfinite(loss_n) and loss_n < loss_pp, f"{what} loss {loss_n} after {done} steps, "
+          f"{loss_pp} at init")
+    print(f"  loss after {done} steps on one batch {loss_n:.6f} (from {loss_pp:.6f})")
+    del sharded, sopt
+    return {**t, "loss_rel": rel}
+
+
+def moe_dropped_share(sharded: dict, tokens, plan) -> float:
+    """The share of top-k assignments that the capacity drops, over every
+    slot's tokens."""
+    import torch
+
+    from tpudash_torch.models import moe as MO
+    from tpudash_torch.models import workload as W
+
+    cfg, kept, total = plan.cfg, 0.0, 0
+    with torch.no_grad():
+        for g, t in enumerate(tokens.chunk(plan.ep, 0)):
+            p = {name: rows[0][g] for name, rows in sharded.items()}
+            x = W._rmsnorm(p["embed"][t[:, :-1].to(plan.device(g))].reshape(-1, cfg.d_model), p["ln"])
+            dispatch, _, _ = MO._route(x, p["router"], cfg, MO._capacity(x.shape[0], cfg))
+            kept += dispatch.sum().item()
+            total += x.shape[0] * cfg.top_k
+    return 1.0 - kept / total
+
+
+def moe_phase(devices: list, card: str, label: str) -> dict:
+    """The expert-parallel MoE at the workload's widths over (ep,) =
+    ``devices``: the expert FFN over the slots against the dense oracle at
+    capacity_factor = n_experts (nothing drops) for top_k 1 and 2 at batch 2,
+    within the reference test's rtol 5e-2, atol 2e-2 (tests/test_moe.py:66);
+    each part on the device its plan names; the loss at init within 1.0 of
+    ln(vocab); the share of assignments dropped at cf 1.25; step time, host
+    issue, busy share and peak memory; the loss lower after 8 steps."""
+    import dataclasses
+
+    import torch
+
+    from tpudash_torch.models import moe as MO
+    from tpudash_torch.models import workload as W
+    from tpudash_torch.parallel.mesh import build_mesh
+
+    dev, G = devices[0], len(devices)
+    cfg = MO.MoEConfig(**MOE_DEFAULTS)
+    mesh = build_mesh({"ep": G}, devices)
+    plan = MO.moe_plan(mesh, cfg)
+    print(f"MoE over {G} slots ({label}) [{card}]: {cfg}")
+    gen_t = torch.Generator(device=dev).manual_seed(SEED)
+    params, opt = MO.make_moe_train_state(cfg, gen_t)
+    errs = []
+    for k in (1, 2):
+        c = dataclasses.replace(cfg, top_k=k, capacity_factor=float(cfg.n_experts))
+        x = torch.randn((2 * cfg.seq, cfg.d_model), generator=gen_t, device=dev).bfloat16()
+        parts = W.shard_params(params, MO.moe_plan(mesh, c))
+        with torch.no_grad():
+            ys, _ = MO.moe_ffn([t.to(d) for t, d in zip(x.chunk(G, 0), devices)],
+                               [{n: rows[0][g] for n, rows in parts.items()} for g in range(G)], c)
+            got = torch.cat([y.to(dev) for y in ys]).float()
+            want = MO.dense_moe_reference(x, params, c).float()
+        err = (got - want).abs()
+        check(bool(torch.isfinite(got).all()) and bool((err <= 2e-2 + 5e-2 * want.abs()).all()),
+              f"moe_ffn top_k {k}: max err {err.max().item():.3e} past atol 2e-2 + rtol 5e-2")
+        errs.append(f"top_k {k} max err {err.max().item():.3e} (|y| max {want.abs().max().item():.3f})")
+        del parts, ys, got, want
+    print(f"  moe_ffn vs dense oracle, {2 * cfg.seq} tokens (batch 2), capacity_factor = n_experts: "
+          + "; ".join(errs))
+    batch = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=gen_t, device=dev)
+    step, shard_inputs = MO.make_moe_train_step(mesh, cfg)
+    sharded, sopt = shard_inputs(params, opt)
+    del params, opt
+    _check_placement(sharded, plan)
+    dropped = moe_dropped_share(sharded, batch, plan)
+    loss0 = step(sharded, sopt, batch).item()
+    check(abs(loss0 - math.log(cfg.vocab)) < 1.0, f"MoE loss at init {loss0} vs ln {cfg.vocab}")
+    print(f"  every part on the device the plan names; loss at init {loss0:.6f} (ln {cfg.vocab} = "
+          f"{math.log(cfg.vocab):.4f}); assignments dropped at cf {cfg.capacity_factor}: "
+          f"{100 * dropped:.2f} %")
+    t = step_timings(lambda: step(sharded, sopt, batch), devices, 4)
+    print_timings(t, card, 4)
+    done = 1 + t["steps"]
+    loss_n = step(sharded, sopt, batch).item()
+    check(math.isfinite(loss_n) and loss_n < loss0, f"MoE loss {loss_n} after {done} steps, {loss0} at init")
+    print(f"  loss after {done} steps on one batch {loss_n:.6f} (from {loss0:.6f})")
+    del sharded, sopt
+    return {**t, "dropped": dropped}
+
+
+def dryrun_phase(dev, card: str) -> None:
+    """``dryrun_multichip`` over the card named 2 and 4 times: every
+    parallel step at the tiny configuration, the 3D one at n = 4."""
+    from tpudash_torch.dryrun import dryrun_multichip
+
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        losses = dryrun_multichip(n, [dev] * n)
+        want = {"sharded", "ring", "pipeline", "moe"} | ({"3d"} if n % 4 == 0 else set())
+        check(set(losses) == want, f"dryrun_multichip({n}) gave {sorted(losses)}")
+        print(f"dryrun_multichip({n}, [{dev}] * {n}) [{card}] in {time.perf_counter() - t0:.1f} s: "
+              + ", ".join(f"{k} {v:.6f}" for k, v in losses.items()))
 
 
 def profile_steps(fn, n: int):
@@ -1055,6 +1248,45 @@ def main() -> int:
           f"ring path launched a probe kernel: {ring_counts}")
     print(f"ring path: launches {ring_counts}")
 
+    # -- 7d. the pipeline, 3D and MoE steps and the dry run --------------------------
+    new_counts = {}
+
+    def counted(path: str, run) -> None:
+        kernels.reset_launch_counts()
+        run()
+        new_counts[path] = kernels.launch_counts()
+        check(new_counts[path] == {"hbm_read": 0, "hbm_copy": 0},
+              f"{path} path launched a probe kernel: {new_counts[path]}")
+        print(f"{path} path: launches {new_counts[path]}")
+
+    def pipelines() -> None:
+        pipeline_phase([dev] * 2, card, "rehearsal on one card named twice", {"dp": 1, "pp": 2}, 4)
+        pipeline_phase([dev] * 4, card, "rehearsal on one card named four times",
+                       {"dp": 2, "pp": 2}, 4)
+        if n_gpus > 1:
+            pipeline_phase(every_gpu, card, f"{n_gpus} distinct GPUs", {"dp": 1, "pp": n_gpus}, 4)
+
+    def pipelines3d() -> None:
+        pipeline_phase([dev] * 4, card, "rehearsal on one card named four times",
+                       {"dp": 1, "pp": 2, "tp": 2}, 2)
+        if n_gpus % 4 == 0:
+            pipeline_phase(every_gpu, card, f"{n_gpus} distinct GPUs",
+                           {"dp": n_gpus // 4, "pp": 2, "tp": 2}, 2)
+
+    def moes() -> None:
+        moe_phase([dev], card, "one card")
+        moe_phase([dev] * 2, card, "rehearsal on one card named twice")
+        if n_gpus > 1:
+            moe_phase(every_gpu, card, f"{n_gpus} distinct GPUs")
+
+    counted("pipeline", pipelines)
+    counted("pipeline3d", pipelines3d)
+    counted("moe", moes)
+    counted("dryrun", lambda: dryrun_phase(dev, card))
+    if n_gpus == 1:
+        print("pipeline, 3D and MoE over distinct GPUs: NOT RUN (this machine has 1 GPU); only the "
+              "one-card rehearsals ran")
+
     # -- 8. per-kernel times at the main path's shapes ---------------------------
     x = torch.randn((rows, cols), generator=gen_rng, device=dev)
     prev = torch.randn((1, cols), generator=gen_rng, device=dev)
@@ -1092,7 +1324,8 @@ def main() -> int:
          "device_ms": read_dev, "host_us": read_host, "path": "exporter main path",
          "launches_by_path": {"exporter": main_counts["hbm_read"], "bench": bench_counts["hbm_read"],
                               "inter_gpu": ici_counts["hbm_read"], "training": train_counts["hbm_read"],
-                              "sharded": sharded_counts["hbm_read"], "ring": ring_counts["hbm_read"]}},
+                              "sharded": sharded_counts["hbm_read"], "ring": ring_counts["hbm_read"],
+                              **{path: c["hbm_read"] for path, c in new_counts.items()}}},
         {"name": "hbm_copy", "route": "cuda", "source": "tpudash_torch/ops/csrc/hbm_copy.cu",
          "replaces": "tpudash/ops/probes.py:196", "launches": bench_counts["hbm_copy"],
          "max_abs_err": 0.0, "ms": copy_t["kernel"], "plain_ms": copy_t["plain"],
@@ -1100,7 +1333,8 @@ def main() -> int:
          "device_ms": copy_dev, "host_us": copy_host, "path": "probe bench path",
          "launches_by_path": {"exporter": main_counts["hbm_copy"], "bench": bench_counts["hbm_copy"],
                               "inter_gpu": ici_counts["hbm_copy"], "training": train_counts["hbm_copy"],
-                              "sharded": sharded_counts["hbm_copy"], "ring": ring_counts["hbm_copy"]}},
+                              "sharded": sharded_counts["hbm_copy"], "ring": ring_counts["hbm_copy"],
+                              **{path: c["hbm_copy"] for path, c in new_counts.items()}}},
     ]
     def us(v):
         return "not measured" if v is None else f"{v * 1e3:.2f} us"

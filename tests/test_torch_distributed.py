@@ -18,6 +18,7 @@ import torch.distributed as dist
 from tpudash.parallel import distributed as jdist
 from tpudash_torch.exporter import server
 from tpudash_torch.parallel import distributed
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 JOB = {"WORLD_SIZE": "2", "RANK": "0", "MASTER_ADDR": "10.0.0.1", "MASTER_PORT": "29500"}

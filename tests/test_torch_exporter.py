@@ -12,6 +12,7 @@ from tpudash_torch import schema as tschema
 from tpudash_torch.config import Config
 from tpudash_torch.exporter.server import WARMUP_TASK, make_app
 from tpudash_torch.exporter.textfmt import encode_samples_py
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SMALL = {"probe_matmul_size": 256, "probe_matmul_iters": 1,
          "probe_hbm_mb": 1, "probe_hbm_k1": 1, "probe_hbm_k2": 2}

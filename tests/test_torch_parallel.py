@@ -17,6 +17,7 @@ from tpudash_torch import schema as tschema
 from tpudash_torch.parallel import collectives as tcoll
 from tpudash_torch.parallel import mesh as tmesh
 from tpudash_torch.sources.probe import TorchProbeSource
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SMALL = {"probe_matmul_size": 256, "probe_matmul_iters": 1,
          "probe_hbm_mb": 1, "probe_hbm_k1": 1, "probe_hbm_k2": 2,

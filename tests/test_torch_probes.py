@@ -22,6 +22,7 @@ import torch
 from tpudash.ops import probes as jprobes
 from tpudash_torch.ops import kernels
 from tpudash_torch.ops import probes as tprobes
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 F32_U = 2.0**-24  # unit roundoff of float32

@@ -27,6 +27,7 @@ from tpudash.parallel import mesh as jmesh
 from tpudash_torch.models import ring_attention as TR
 from tpudash_torch.models import workload as T
 from tpudash_torch.parallel.mesh import build_mesh
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU8 = [torch.device("cpu")] * 8
 LOSS_RTOL = 2.0**-10

@@ -38,6 +38,7 @@ from tpudash_torch.models.checkpoint import WorkloadCheckpointer
 from tpudash_torch.models.runner import WorkloadRunner
 from tpudash_torch.parallel.mesh import build_mesh
 from tpudash_torch.sources.workload import WORKLOAD_TFLOPS, TorchWorkloadSource
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU8 = [torch.device("cpu")] * 8
 SIZES = dict(vocab=64, d_model=32, n_layers=2, d_ff=64, seq=16, batch=4)
@@ -372,11 +373,19 @@ def test_no_gpu_and_no_devices_raise(monkeypatch):
 # --- the dry run (__graft_entry__.py) -------------------------------------------------------
 
 def test_dryrun_multichip_runs_both_steps_over_8_cpu_devices():
+    """Every parallel step over 8 devices: sharded, ring, pipeline, 3D and
+    MoE, each loss finite and near ln(vocab) at init."""
     losses = dryrun_multichip(8, CPU8)
-    assert set(losses) == {"sharded", "ring"}
+    assert set(losses) == {"sharded", "ring", "pipeline", "3d", "moe"}
     assert all(math.isfinite(v) and abs(v - math.log(128)) < 1.0 for v in losses.values())
     with pytest.raises(RuntimeError, match="need 8 devices, have 4"):
         dryrun_multichip(8, CPU8[:4])
+
+
+def test_dryrun_multichip_over_2_devices_skips_the_3d_step_like_the_reference():
+    losses = dryrun_multichip(2, CPU8[:2])
+    assert set(losses) == {"sharded", "ring", "pipeline", "moe"}
+    assert all(math.isfinite(v) and abs(v - math.log(128)) < 1.0 for v in losses.values())
 
 
 def test_entry_is_the_forward_of_the_reference_tiny_config():

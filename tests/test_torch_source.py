@@ -14,6 +14,7 @@ from tpudash_torch import registry as tregistry
 from tpudash_torch import schema as tschema
 from tpudash_torch.sources.base import SourceError
 from tpudash_torch.sources.probe import TorchProbeSource
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SMALL = {"probe_matmul_size": 256, "probe_matmul_iters": 1,
          "probe_hbm_mb": 1, "probe_hbm_k1": 1, "probe_hbm_k2": 2,

@@ -44,6 +44,7 @@ from tpudash_torch.sources.workload import (
     WORKLOAD_TFLOPS,
     TorchWorkloadSource,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SIZES = dict(vocab=128, d_model=64, n_heads=4, n_layers=2, d_ff=128, seq=16, batch=2)
 JCFG, TCFG = J.WorkloadConfig(**SIZES), T.WorkloadConfig(**SIZES)

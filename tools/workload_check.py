@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The workload's multi-GPU paths over every GPU of one host.
 
-    python3 tools/workload_check.py
+    python3 tools/workload_check.py [--phases sharded,ring,pipeline,pipeline3d,moe]
 
 A check and measurement tool, not part of the package: nothing imports it.
 It runs ``chip_smoke.sharded_phase`` (the dp×tp sharded train step at the
@@ -11,9 +11,13 @@ the GPU its plan names, step time, busy share and peak memory per device,
 ``chip_smoke.ring_phase`` (ring attention at the defaults' shapes against
 its oracle, one ring train step against the plain step), first over
 ``[cuda:0, cuda:0]`` (a rehearsal on one card) and then over every GPU of
-the host.  ``chip_smoke.py`` runs the same phases; this script runs them
-alone, for a host with several GPUs.  It fails on a host with fewer than
-two, and on any failed check.
+the host; then, over every GPU, ``chip_smoke.pipeline_phase`` as GPipe at
+dp 1 × pp n and as the 3D step at dp n/4 × pp 2 × tp 2, and
+``chip_smoke.moe_phase`` at ep n (each part on the GPU its plan names,
+loss and gradients against the unsharded step, step time, host issue,
+busy share and peak memory per GPU).  ``chip_smoke.py`` runs their
+rehearsals on one card.  ``--phases`` picks which run (all by default).
+It fails on a host with fewer than two GPUs, and on any failed check.
 """
 
 from __future__ import annotations
@@ -24,8 +28,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def main() -> int:
+PHASES = ("sharded", "ring", "pipeline", "pipeline3d", "moe")
+
+
+def main(argv: list) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated, of {', '.join(PHASES)}")
+    phases = ap.parse_args(argv).phases.split(",")
+    if not set(phases) <= set(PHASES):
+        ap.error(f"unknown phase in {phases}")
 
     sys.path.insert(0, str(ROOT))
     import chip_smoke
@@ -44,16 +60,35 @@ def main() -> int:
         for i in range(n) for j in range(n) if i != j))
     dev0 = torch.device("cuda", 0)
     every_gpu = [torch.device("cuda", i) for i in range(n)]
+    label = f"{n} distinct GPUs"
     kernels.reset_launch_counts()
-    chip_smoke.sharded_phase([dev0, dev0], card, gen, "rehearsal on one card named twice")
-    chip_smoke.sharded_phase(every_gpu, card, gen, f"{n} distinct GPUs")
-    chip_smoke.ring_phase([dev0, dev0], card, "rehearsal on one card named twice")
-    chip_smoke.ring_phase(every_gpu, card, f"{n} distinct GPUs")
+    if "sharded" in phases:
+        chip_smoke.sharded_phase([dev0, dev0], card, gen, "rehearsal on one card named twice")
+        chip_smoke.sharded_phase(every_gpu, card, gen, label)
+    if "ring" in phases:
+        chip_smoke.ring_phase([dev0, dev0], card, "rehearsal on one card named twice")
+        chip_smoke.ring_phase(every_gpu, card, label)
+    n_layers, n_experts = chip_smoke.WORKLOAD_DEFAULTS["n_layers"], chip_smoke.MOE_DEFAULTS["n_experts"]
+    if "pipeline" in phases:
+        if n_layers % n == 0:
+            chip_smoke.pipeline_phase(every_gpu, card, label, {"dp": 1, "pp": n}, 4)
+        else:
+            print(f"pipeline over {n} GPUs: NOT RUN ({n_layers} layers do not split over pp {n})")
+    if "pipeline3d" in phases:
+        if n % 4 == 0:
+            chip_smoke.pipeline_phase(every_gpu, card, label, {"dp": n // 4, "pp": 2, "tp": 2}, 2)
+        else:
+            print(f"3D step over {n} GPUs: NOT RUN (it needs a multiple of 4)")
+    if "moe" in phases:
+        if n_experts % n == 0:
+            chip_smoke.moe_phase(every_gpu, card, label)
+        else:
+            print(f"MoE over {n} GPUs: NOT RUN ({n_experts} experts do not split over ep {n})")
     counts = kernels.launch_counts()
     chip_smoke.check(counts == {"hbm_read": 0, "hbm_copy": 0}, f"probe kernels launched: {counts}")
-    print(f"workload_check: ok; probe kernel launches {counts}")
+    print(f"workload_check: ok ({', '.join(phases)}); probe kernel launches {counts}")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

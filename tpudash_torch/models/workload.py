@@ -301,6 +301,15 @@ class ShardPlan:
             return torch.cat([p.narrow(dim, j * w, w) for j in range(3) for p in parts], dim)
         return torch.cat(parts, dim)
 
+    def part_device(self, name: str, row: int, i: int) -> torch.device:
+        """The device of shard ``i`` of leaf ``name`` in dp row ``row``."""
+        return self.device(row, i)
+
+    def replicas(self, sharded: dict) -> list:
+        """The groups of tensors that hold one value: each shard over the dp
+        rows."""
+        return row_replicas(sharded)
+
 
 def shard_plan(mesh: Mesh, cfg: WorkloadConfig) -> ShardPlan:
     """The plan of ``cfg`` on a (dp, tp) mesh.  A dimension that does not
@@ -319,12 +328,14 @@ def shard_plan(mesh: Mesh, cfg: WorkloadConfig) -> ShardPlan:
 def shard_params(tree: dict, plan: ShardPlan) -> dict:
     """The full tree's shards, each a tensor of its own on the device the
     plan names: every leaf becomes a tuple over the dp rows of a tuple over
-    its shards (tp of them, or one on the row's home for a norm)."""
+    the shards ``plan.split`` gives (for a :class:`ShardPlan`, tp of them,
+    or one on the row's home for a norm)."""
     out = []
     for name, full in named_leaves(tree):
         parts = plan.split(name, full.detach())
         out.append((name, tuple(
-            tuple(p.to(plan.device(r, c), copy=True).contiguous() for c, p in enumerate(parts))
+            tuple(p.to(plan.part_device(name, r, c), copy=True).contiguous()
+                  for c, p in enumerate(parts))
             for r in range(plan.dp))))
     return _unflatten(out)
 
@@ -354,7 +365,7 @@ def shard_optimizer_state(state: dict, sharded: dict, plan: ShardPlan) -> dict:
         for r in range(plan.dp):
             for c in range(len(rows[0])):
                 if st is not None:
-                    dev = plan.device(r, c)
+                    dev = plan.part_device(name, r, c)
                     out[j] = {"step": st["step"].clone(), **{
                         k: v[c].to(dev, copy=True).contiguous() for k, v in parts.items()}}
                 j += 1
@@ -465,7 +476,10 @@ def checkpoint_across_devices(fn, *tensors):
     several of them at once, which it does not support ("early_stop is
     set"); the reentrant form recomputes once, in the thread of its one
     backward node.  It tracks the gradients of top-level tensor arguments
-    only, so ``fn`` takes every tensor flat."""
+    only, so ``fn`` takes every tensor flat.  With nothing to
+    differentiate it calls ``fn``: there is nothing to recompute."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
+        return fn(*tensors)
     return checkpoint(fn, *tensors, use_reentrant=True)
 
 
@@ -535,45 +549,59 @@ def sum_replica_grads(replicas: list) -> None:
         p.grad = g.to(p.device)
 
 
-def make_sharded_train_step(mesh: Mesh, cfg: WorkloadConfig):
-    """The train step over a (dp, tp) mesh, driven from one process:
-    parameters and their AdamW moments tp-sharded by :func:`shard_plan`,
-    the batch split over dp rows, each layer recomputed in backward.  After
-    backward each shard's gradient is summed over the dp rows (the loss is
-    already the rows' mean, so this is the reference's dp all-reduce of the
-    mean), and every row runs the same AdamW update: the replicas stay
-    bitwise equal.
+def row_replicas(sharded: dict) -> list:
+    """Each shard of each leaf of a sharded tree over its dp rows: the
+    groups whose gradients :func:`sum_replica_grads` adds."""
+    return [[row[c] for row in rows] for _, rows in named_leaves(sharded) for c in range(len(rows[0]))]
+
+
+def plan_train_step(plan, loss_fn):
+    """The train step over the shards a plan lays out, driven from one
+    process: ``plan`` gives ``cfg``, ``dp``, ``split``/``join``/``part_device``
+    for each leaf and ``replicas`` (a :class:`ShardPlan`, or the pipeline's
+    and the MoE's plans), and ``loss_fn(sharded, tokens)`` the loss on one
+    device.  After backward the gradients of each group of replicas are
+    summed (the loss is already the mean over them, so this is the
+    reference's all-reduce of the mean), and every replica runs the same
+    AdamW update: the replicas stay bitwise equal.
 
     Returns ``(step, shard_inputs)``.  ``shard_inputs(params, optimizer)``
-    turns a full train state (``make_train_state``; its optimizer may hold
-    restored moments) into ``(sharded, sharded_optimizer)``;
+    turns a full train state (its optimizer may hold restored moments, or
+    be None) into ``(sharded, sharded_optimizer)``;
     ``step(sharded, sharded_optimizer, tokens)`` updates them in place and
-    returns the loss before the update, a 0-d tensor on the mesh's first
-    device.  The tokens may lie on any device: the step places each row's.
+    returns the loss before the update, a 0-d tensor, unread.  The tokens
+    may lie on any device: the loss places each part of the batch.
     """
-    plan = shard_plan(mesh, cfg)
 
     def shard_inputs(params: dict, optimizer: "torch.optim.Optimizer | None"):
         sharded = shard_params(params, plan)
         tensors = shard_leaves(sharded)
         for t in tensors:
             t.requires_grad_(True)
-        opt = _adamw(tensors, cfg)
+        opt = _adamw(tensors, plan.cfg)
         if optimizer is not None and optimizer.state:
             opt.load_state_dict(shard_optimizer_state(optimizer.state_dict(), sharded, plan))
         return sharded, opt
 
     def step(sharded: dict, optimizer: torch.optim.Optimizer, tokens: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = sharded_loss_fn(sharded, tokens, plan)
+        loss = loss_fn(sharded, tokens)
         loss.backward()
-        for _, rows in named_leaves(sharded):
-            for c in range(len(rows[0])):
-                sum_replica_grads([row[c] for row in rows])
+        for group in plan.replicas(sharded):
+            sum_replica_grads(group)
         optimizer.step()
         return loss.detach()
 
     return step, shard_inputs
+
+
+def make_sharded_train_step(mesh: Mesh, cfg: WorkloadConfig):
+    """The train step over a (dp, tp) mesh (:func:`plan_train_step` of
+    :func:`shard_plan`): parameters and their AdamW moments tp-sharded, the
+    batch split over dp rows, each layer recomputed in backward.  The loss
+    is on the mesh's first device."""
+    plan = shard_plan(mesh, cfg)
+    return plan_train_step(plan, functools.partial(sharded_loss_fn, plan=plan))
 
 
 def flops_per_step(cfg: WorkloadConfig) -> float:
