@@ -33,6 +33,13 @@ From the root of a checkout, on a host with one H100:
    widths at ep 1 and ep 2, its expert FFN against the dense oracle; the
    dry run over the card named 2 and 4 times; each over every GPU too when
    there are several;
+7e. drives the last modules: the anomaly scorer on every GPU against
+   numpy's float32 z-score; the demo (start_demo at the exporter's
+   defaults, the dashboard child's first frame, nothing left running after
+   close; the exporter half only where the child's packages are absent);
+   the exporter's device trace while the workload trains (CUDA kernels and
+   the training thread's aten ops, 409 on a second request) and while the
+   probe source is scraped (the hbm_read kernels named);
 8. times each kernel at the main path's shapes beside its bound, its plain
    version and one PyTorch call computing the same function, and the host
    time of one wrapper call;
@@ -974,6 +981,294 @@ def dryrun_phase(dev, card: str) -> None:
               + ", ".join(f"{k} {v:.6f}" for k, v in losses.items()))
 
 
+def _random_score_inputs(k: int = 64, c: int = 8, seed: int = 7):
+    """The anomaly tests' recipe (tests/test_anomaly.py): x, loc and scale
+    as float64 [k, c], a NaN x and a NaN loc (a cold cell)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(50.0, 20.0, (k, c))
+    loc = rng.normal(50.0, 5.0, (k, c))
+    scale = np.abs(rng.normal(3.0, 1.0, (k, c))) + 0.1
+    x[0, 0] = np.nan
+    loc[1, 1] = np.nan
+    return x, loc, scale
+
+
+def _with_zero_scale(x, loc, scale):
+    """One more column whose scale is 0: ±inf, a 0/0 NaN, and the NaNs of
+    column 0's x and column 1's loc."""
+    import numpy as np
+
+    x = np.hstack([x, x[:, :1]])
+    loc = np.hstack([loc, loc[:, 1:2]])
+    loc[2, -1] = x[2, -1]  # 0 / 0
+    return x, loc, np.hstack([scale, np.zeros((len(x), 1))])
+
+
+def anomaly_phase(devices: list, card: str) -> None:
+    """The port's anomaly scorer on each device of ``devices`` against
+    numpy's float32 z-score at 256 and 250 rows: rtol = atol = 1e-6 with NaN
+    where numpy has NaN (the reference test's bound), and whether it is
+    numpy's in every element; then the host time of one 256 × 12 call, the
+    reference test's size, on the first device."""
+    import numpy as np
+
+    from tpudash_torch.anomaly import baselines
+
+    def numpy_z(x, loc, scale):
+        with np.errstate(invalid="ignore", divide="ignore"):
+            return (np.asarray(x, np.float32) - np.asarray(loc, np.float32)) / np.asarray(
+                scale, np.float32)
+
+    for device in devices:
+        score, backend = baselines.make_scorer(device)
+        check(backend == "torch", f"scorer backend {backend}")
+        for k in (256, 250):
+            x, loc, scale = _with_zero_scale(*_random_score_inputs(k=k, c=12))
+            got, want = score(x, loc, scale), numpy_z(x, loc, scale)
+            label = f"{k} x 13 on {device}"
+            check(got.dtype == np.float32 and got.shape == want.shape,
+                  f"anomaly {label}: {got.dtype} {got.shape}")
+            with np.errstate(invalid="ignore"):  # inf - inf in the message
+                check(bool(np.allclose(got, want, rtol=1e-6, atol=1e-6, equal_nan=True)),
+                      f"anomaly {label}: max err {np.nanmax(np.abs(got - want))} above 1e-6")
+            check(np.isinf(got[:, -1]).sum() == np.isinf(want[:, -1]).sum() > 0,
+                  f"anomaly {label}: the zero-scale column's infinities differ")
+            print(f"anomaly scorer {label} [{card}]: within 1e-6 of numpy, equal in every "
+                  f"element: {np.array_equal(got, want, equal_nan=True)}")
+
+    def median_us(fn, n: int = 50) -> float:
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+        return statistics.median(times)
+
+    x, loc, scale = _random_score_inputs(k=256, c=12)
+    score, _ = baselines.make_scorer(devices[0])
+    score(x, loc, scale)
+    print(f"anomaly scorer 256 x 12 on {devices[0]} [{card}]: "
+          f"{median_us(lambda: score(x, loc, scale)):.1f} us a call, host clock, median of 50 "
+          f"(numpy on the host: {median_us(lambda: numpy_z(x, loc, scale)):.1f} us)")
+
+
+def demo_phase(card: str) -> None:
+    """``python -m tpudash_torch.demo``'s path: start_demo at the exporter's
+    defaults on free ports, the dashboard child's first frame, and nothing
+    left running after close.  The child (the reference dashboard, run as
+    ``python -m tpudash``) needs pandas, aiohttp and requests; without one,
+    only the exporter half runs."""
+    import importlib.util
+    import os
+    import socket
+
+    import aiohttp
+    import torch
+
+    from tpudash_torch import demo
+    from tpudash_torch.config import Config
+    from tpudash_torch.exporter.server import make_app
+    from tpudash_torch.schema import HBM_BANDWIDTH, HBM_TOTAL, HBM_USED, TENSORCORE_UTIL
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def binds(port: int) -> bool:
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                return False
+        return True
+
+    port, exporter_port = free_port(), free_port()
+    cfg = Config(host="127.0.0.1", port=port, exporter_port=exporter_port)
+    exporter_cfg, env = demo.demo_configs(cfg)
+    check(exporter_cfg.source == "probe", f"demo source {exporter_cfg.source}")
+    check(env["TPUDASH_SCRAPE_URL"] == f"http://127.0.0.1:{exporter_port}/metrics", f"env {env}")
+    n_dev = torch.cuda.device_count()
+    missing = [m for m in ("pandas", "aiohttp", "requests") if importlib.util.find_spec(m) is None]
+
+    async def metrics(session) -> str:
+        async with session.get(f"http://127.0.0.1:{exporter_port}/metrics") as r:
+            check(r.status == 200, f"demo exporter /metrics {r.status}")
+            text = await r.text()
+        for series in (TENSORCORE_UTIL, HBM_USED, HBM_TOTAL, HBM_BANDWIDTH):
+            lines = [ln for ln in text.splitlines() if ln.startswith(series + "{")]
+            check(len(lines) == n_dev, f"demo /metrics: {len(lines)} lines of {series}")
+        return text
+
+    async def exporter_only() -> float:
+        from aiohttp import web
+
+        t0 = time.perf_counter()
+        runner = web.AppRunner(make_app(exporter_cfg))
+        await runner.setup()
+        try:
+            await web.TCPSite(runner, exporter_cfg.host, exporter_port).start()
+            async with aiohttp.ClientSession() as s:
+                await metrics(s)
+            return time.perf_counter() - t0
+        finally:
+            await runner.cleanup()
+
+    async def whole() -> tuple:
+        # the child runs `python -m tpudash` from this checkout
+        os.environ["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(ROOT), os.environ.get("PYTHONPATH", "")) if p)
+        t0 = time.perf_counter()
+        d = await demo.start_demo(cfg)
+        try:
+            started = time.perf_counter() - t0
+            async with aiohttp.ClientSession() as s:
+                await metrics(s)
+                deadline = time.monotonic() + 60
+                errors = []  # the frames before the first good one
+                while True:
+                    async with s.get(f"{d.dashboard_url}/api/frame") as r:
+                        check(r.status == 200, f"dashboard /api/frame {r.status}")
+                        frame = json.loads(await r.text())
+                    if frame["error"] is None or time.monotonic() > deadline:
+                        break
+                    errors.append(frame["error"])
+                    await asyncio.sleep(0.5)
+            first_frame = time.perf_counter() - t0
+        finally:
+            await d.close()
+        if errors:
+            print(f"  {len(errors)} frame(s) with an error before the first good one; the first: "
+                  f"{errors[0][:300]}")
+        check(frame["error"] is None, f"dashboard frame error: {frame['error']}")
+        check(len(frame["chips"]) == n_dev, f"dashboard shows {len(frame['chips'])} chips, "
+              f"not {n_dev}")
+        check(d.dashboard.returncode is not None and not os.path.exists(f"/proc/{d.dashboard.pid}"),
+              "the dashboard child was not reaped")
+        return started, first_frame, len(frame["chips"])
+
+    if missing:
+        print(f"demo dashboard child: NOT RUN ({', '.join(missing)} absent on this machine)")
+        took = asyncio.run(exporter_only())
+        print(f"demo exporter half [{card}]: demo_configs -> probe, scrape URL {env['TPUDASH_SCRAPE_URL']}; "
+              f"the exporter on :{exporter_port} served /metrics (200, every tpu_* series for "
+              f"{n_dev} GPU(s)) {took:.2f} s after its start")
+    else:
+        started, first_frame, chips = asyncio.run(whole())
+        print(f"demo [{card}]: start_demo up (exporter + dashboard child healthy) in {started:.2f} s; "
+              f"time to first frame {first_frame:.2f} s, {chips} chip(s), no error; "
+              f"closed, child reaped")
+    check(binds(port) and binds(exporter_port), "a demo port is still bound after close")
+
+
+def _trace_events(trace_dir: str) -> tuple[list, float]:
+    import os
+    import shutil
+
+    path = os.path.join(trace_dir, "trace.json")
+    try:
+        size_mb = os.path.getsize(path) / 1e6
+        with open(path) as f:
+            return json.load(f)["traceEvents"], size_mb
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+
+
+def trace_phase(dev, card: str) -> None:
+    """``POST /api/profile {"device": true}`` on the port's exporter: with
+    the workload training at its defaults on ``dev`` (the trace holds CUDA
+    kernels and the ``tpudash-workload`` thread's aten ops; a second request
+    meanwhile gets 409), then with the probe source while /metrics is
+    scraped (the trace names the hbm_read kernels)."""
+    import collections
+    import threading
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from tpudash_torch.config import Config
+    from tpudash_torch.exporter.server import WARMUP_TASK, make_app
+    from tpudash_torch.sources.workload import WORKLOAD_LOSS
+
+    async def trace(client, seconds: float, during=None) -> tuple:
+        t0 = time.perf_counter()
+        task = asyncio.ensure_future(
+            client.post("/api/profile", json={"device": True, "seconds": seconds}))
+        if during is not None:
+            await during()
+        resp = await task
+        wall = time.perf_counter() - t0
+        check(resp.status == 200, f"/api/profile {resp.status}: {await resp.text()}")
+        body = await resp.json()
+        check(body["mode"] == "device" and body["seconds"] == seconds, f"/api/profile {body}")
+        events, size_mb = _trace_events(body["trace_dir"])
+        return events, size_mb, wall
+
+    def summary(events) -> str:
+        cats = collections.Counter(e.get("cat", e.get("ph")) for e in events)
+        return ", ".join(f"{k} {v}" for k, v in cats.most_common())
+
+    async def workload():
+        client = TestClient(TestServer(make_app(Config(source="workload"), device=dev)))
+        await client.start_server()
+        try:
+            await client.app[WARMUP_TASK]
+            deadline = time.monotonic() + 120
+            while f"\n{WORKLOAD_LOSS}{{" not in await (await client.get("/metrics")).text():
+                check(time.monotonic() < deadline, "the workload produced no loss in 120 s")
+                await asyncio.sleep(0.05)
+            tids = {t.native_id for t in threading.enumerate() if t.name == "tpudash-workload"}
+
+            async def second():
+                await asyncio.sleep(0.5)
+                resp = await client.post("/api/profile", json={"device": True, "seconds": 0.1})
+                check(resp.status == 409, f"a second trace meanwhile got {resp.status}, not 409")
+
+            return (*await trace(client, 2.0, second), tids)
+        finally:
+            await client.close()
+
+    events, size_mb, wall, tids = asyncio.run(workload())
+    kernels_ = [e for e in events if e.get("cat") == "kernel"]
+    ops = [e for e in events if e.get("cat") == "cpu_op" and e.get("tid") in tids
+           and e["name"].startswith("aten::")]
+    check(len(kernels_) > 0, "the workload trace holds no CUDA kernel")
+    check(len(ops) > 0, "the workload trace holds no aten op of the tpudash-workload thread")
+    print(f"trace, workload at its defaults on {dev} [{card}]: 2 s window took {wall:.2f} s "
+          f"(profiler start included), {size_mb:.1f} MB, {len(events)} events: {summary(events)}; "
+          f"{len(kernels_)} CUDA kernels, {len(ops)} aten ops on the tpudash-workload thread; "
+          f"a second request meanwhile: 409")
+
+    async def probe():
+        # probe_heavy_interval 0: each scrape with no batch in flight starts a
+        # probe batch on a background thread, so the window holds one
+        cfg = Config(source="probe", extra={"probe_heavy_interval": 0.0})
+        client = TestClient(TestServer(make_app(cfg, device=dev)))
+        await client.start_server()
+        try:
+            await client.app[WARMUP_TASK]
+
+            async def scrape():
+                for _ in range(3):
+                    await asyncio.sleep(0.4)
+                    resp = await client.get("/metrics")
+                    check(resp.status == 200, f"/metrics during the trace: {resp.status}")
+
+            return await trace(client, 2.0, scrape)
+        finally:
+            await client.close()
+
+    events, size_mb, wall = asyncio.run(probe())
+    names = collections.Counter(e["name"] for e in events if e.get("cat") == "kernel")
+    # hbm_read.cu's two kernels
+    read = {k: sum(c for n, c in names.items() if k in n)
+            for k in ("column_partials", "finish_columns")}
+    check(all(read.values()), f"the probe trace names no hbm_read kernel: {names.most_common(8)}")
+    print(f"trace, probe source on {dev} with /metrics scraped in the window [{card}]: {wall:.2f} s, "
+          f"{size_mb:.1f} MB, {len(events)} events: {summary(events)}; hbm_read kernels {read}")
+
+
 def profile_steps(fn, n: int):
     """(busy share, top 5 kernels by device ms per call, device kernels and
     copies per call) of ``n`` calls of ``fn`` under torch.profiler; (None,
@@ -1251,13 +1546,18 @@ def main() -> int:
     # -- 7d. the pipeline, 3D and MoE steps and the dry run --------------------------
     new_counts = {}
 
-    def counted(path: str, run) -> None:
+    def counted(path: str, run, reads: bool = False) -> None:
+        """Run a path between a reset and a read of the launch counts: the
+        copy kernel launches on none of these paths, the read kernel on
+        those that run the probe source (``reads``) only."""
         kernels.reset_launch_counts()
+        t0 = time.perf_counter()
         run()
-        new_counts[path] = kernels.launch_counts()
-        check(new_counts[path] == {"hbm_read": 0, "hbm_copy": 0},
-              f"{path} path launched a probe kernel: {new_counts[path]}")
-        print(f"{path} path: launches {new_counts[path]}")
+        took = time.perf_counter() - t0
+        c = new_counts[path] = kernels.launch_counts()
+        check(c["hbm_copy"] == 0 and (c["hbm_read"] > 0) == reads,
+              f"{path} path launches {c}")
+        print(f"{path} path: launches {c}; {took:.1f} s")
 
     def pipelines() -> None:
         pipeline_phase([dev] * 2, card, "rehearsal on one card named twice", {"dp": 1, "pp": 2}, 4)
@@ -1286,6 +1586,11 @@ def main() -> int:
     if n_gpus == 1:
         print("pipeline, 3D and MoE over distinct GPUs: NOT RUN (this machine has 1 GPU); only the "
               "one-card rehearsals ran")
+
+    # -- 7e. the anomaly scorer, the demo and the device trace ------------------------
+    counted("anomaly", lambda: anomaly_phase(every_gpu, card))
+    counted("demo", lambda: demo_phase(card), reads=True)
+    counted("trace", lambda: trace_phase(dev, card), reads=True)
 
     # -- 8. per-kernel times at the main path's shapes ---------------------------
     x = torch.randn((rows, cols), generator=gen_rng, device=dev)

@@ -92,7 +92,21 @@ def test_metrics_answers_503_without_a_gpu(monkeypatch):
 @pytest.mark.parametrize("source", ["prometheus", "probe"])
 def test_make_app_serves_the_probe_source(source):
     app = make_app(Config(source=source, extra=dict(SMALL)), device="cpu")
-    assert {r.resource.canonical for r in app.router.routes()} == {"/metrics", "/healthz"}
+    assert {r.resource.canonical for r in app.router.routes()} == {
+        "/metrics", "/healthz", "/api/profile"}
+
+
+def test_console_script_runs_the_exporter():
+    import importlib
+    import pathlib
+    import tomllib
+
+    with open(pathlib.Path(__file__).resolve().parents[1] / "pyproject.toml", "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    module, _, attr = scripts["tpudash-torch-exporter"].partition(":")
+    from tpudash_torch.exporter.server import run
+
+    assert getattr(importlib.import_module(module), attr) is run
 
 
 def test_make_app_refuses_other_sources():

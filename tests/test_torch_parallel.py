@@ -53,6 +53,18 @@ def test_build_mesh_without_gpu_raises(monkeypatch):
         tmesh.build_mesh()
 
 
+def test_package_re_exports_the_references_names():
+    import tpudash.parallel as jparallel
+    import tpudash_torch.parallel as tparallel
+
+    assert set(tparallel._LAZY) == set(jparallel._LAZY)
+    for name in tparallel._LAZY:
+        mod = tmesh if name in ("build_mesh", "mesh_axes_for") else tcoll
+        assert getattr(tparallel, name) is getattr(mod, name)
+    with pytest.raises(AttributeError, match="no attribute 'no_such_probe'"):
+        tparallel.no_such_probe  # noqa: B018
+
+
 # --- probe contracts: detail and rate formulas -----------------------------------
 
 PROBES = {

@@ -187,10 +187,12 @@ def test_generation_hint_picks_the_record_for_an_unknown_device():
 
 def test_load_config_reads_the_reference_env_names():
     env = {"TPUDASH_SOURCE": "probe", "TPUDASH_HOST": "127.0.0.1",
-           "TPUDASH_EXPORTER_PORT": "9400", "TPUDASH_GENERATION": "h100-pcie"}
+           "TPUDASH_EXPORTER_PORT": "9400", "TPUDASH_GENERATION": "h100-pcie",
+           "TPUDASH_PORT": "19999"}
     got, want = tconfig.load_config(env), jconfig.load_config(env)
-    for field in ("source", "host", "exporter_port", "generation"):
+    for field in ("source", "host", "exporter_port", "generation", "port"):
         assert getattr(got, field) == getattr(want, field)
-    assert got.exporter_port == 9400
+    assert (got.exporter_port, got.port) == (9400, 19999)
     default = tconfig.load_config({})
     assert (default.source, default.host, default.exporter_port) == ("prometheus", "0.0.0.0", 9100)
+    assert default.port == jconfig.Config().port == 8050

@@ -23,6 +23,8 @@ class Config:
     #: Exporter bind address and port (python -m tpudash_torch.exporter).
     host: str = "0.0.0.0"
     exporter_port: int = 9100
+    #: The dashboard's port (python -m tpudash_torch.demo starts one).
+    port: int = 8050
     #: Generation hint ("h100-sxm", "h100-pcie"), used when the device name
     #: resolves to no record; "" or a TPU name leaves the registry default.
     generation: str = ""
@@ -37,6 +39,7 @@ _ENV_MAP = {
     "source": "TPUDASH_SOURCE",
     "host": "TPUDASH_HOST",
     "exporter_port": "TPUDASH_EXPORTER_PORT",
+    "port": "TPUDASH_PORT",
     "generation": "TPUDASH_GENERATION",
     "workload_checkpoint_dir": "TPUDASH_WORKLOAD_CKPT_DIR",
     "workload_checkpoint_every": "TPUDASH_WORKLOAD_CKPT_EVERY",

@@ -8,12 +8,22 @@ by the GPU probe source or the training workload.  The counterpart of
 One exporter per GPU host, single process.  The source is shared, so
 concurrent scrapes serialize on one probe run; heavy probes are
 interval-cached inside TorchProbeSource.
+
+``POST /api/profile`` with ``{"device": true, "seconds": S}`` records a
+device trace of what the source keeps the devices doing, the counterpart of
+the device mode of the dashboard's ``/api/profile``: the dashboard runs the
+JAX sources in its own process, while the port's sources run here.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
+import os
+import shutil
+import tempfile
+import time
 
 import torch
 from aiohttp import web
@@ -38,6 +48,7 @@ class ExporterServer:
         self.source = source
         self._lock = asyncio.Lock()
         self.last_error: str | None = None
+        self._trace_active = False
 
     async def warm(self, app: web.Application) -> None:
         """Startup warmup: run one fetch in the background so the FIRST
@@ -95,10 +106,78 @@ class ExporterServer:
             {"ok": True, "source": self.source.name, "error": self.last_error}
         )
 
+    async def profile(self, request: web.Request) -> web.Response:
+        """Device trace: ``{"device": true, "seconds": S}`` (default 3, clamped
+        to [0.1, 30]) records every thread's CPU ops and, on the GPUs, their
+        kernels and copies for S seconds while the source keeps running, and
+        returns ``{"mode": "device", "seconds", "trace_dir"}``; the directory
+        holds ``trace.json``, a Chrome trace (chrome://tracing, Perfetto).
+        The dashboard's frames mode profiles renders, which an exporter has
+        none of."""
+        device_only = 'the exporter profiles in device mode only: {"device": true, "seconds": S}'
+        try:
+            body = await request.json() if request.can_read_body else {}
+        except json.JSONDecodeError as e:
+            raise web.HTTPBadRequest(text=f"invalid JSON; {device_only}") from e
+        if not isinstance(body, dict) or not body.get("device"):
+            raise web.HTTPBadRequest(text=device_only)
+        try:
+            seconds = min(30.0, max(0.1, float(body.get("seconds", 3.0))))
+        except (TypeError, ValueError) as e:
+            raise web.HTTPBadRequest(text="'seconds' must be a number") from e
+        if self._trace_active:
+            raise web.HTTPConflict(text="a device trace is already running")
+        self._trace_active = True
+        # the flag follows the capture, not this handler: a cancelled handler
+        # (a client gone) leaves the capture running in its thread, and the
+        # profiler open, until it ends
+        capture = asyncio.get_running_loop().run_in_executor(None, self._capture, seconds)
+        capture.add_done_callback(self._capture_done)
+        try:
+            trace_dir = await asyncio.shield(capture)
+        except asyncio.CancelledError:
+            capture.add_done_callback(self._discard_trace)
+            raise
+        except Exception as e:  # noqa: BLE001 — profiler errors → clean 500
+            raise web.HTTPInternalServerError(text=f"device trace failed: {e}") from e
+        return web.json_response({"mode": "device", "seconds": seconds, "trace_dir": trace_dir})
+
+    def _capture_done(self, capture: asyncio.Future) -> None:
+        self._trace_active = False
+
+    @staticmethod
+    def _discard_trace(capture: asyncio.Future) -> None:
+        """Remove the trace of a capture whose request went away."""
+        if not capture.cancelled() and capture.exception() is None:
+            shutil.rmtree(capture.result(), ignore_errors=True)
+
+    @staticmethod
+    def _capture(seconds: float) -> str:
+        """Trace for ``seconds`` into a new ``tpudash-trace-*`` directory and
+        return it; on an error the directory is removed."""
+        from torch.profiler import _ExperimentalConfig, profile, supported_activities
+
+        trace_dir = tempfile.mkdtemp(prefix="tpudash-trace-")
+        try:
+            # every thread, as jax.profiler.trace records: the workload trains
+            # on its own thread and the probes run in executor threads, which
+            # the profiler's default (the thread that enters it) would leave
+            # out.  A torch without the option raises here: a 500, never a
+            # quiet trace of one thread
+            with profile(activities=list(supported_activities()),
+                         experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+                time.sleep(seconds)
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        except BaseException:
+            shutil.rmtree(trace_dir, ignore_errors=True)
+            raise
+        return trace_dir
+
     def build_app(self) -> web.Application:
         app = web.Application()
         app.router.add_get("/metrics", self.metrics)
         app.router.add_get("/healthz", self.healthz)
+        app.router.add_post("/api/profile", self.profile)
         return app
 
 
