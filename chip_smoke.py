@@ -40,6 +40,14 @@ From the root of a checkout, on a host with one H100:
    the exporter's device trace while the workload trains (CUDA kernels and
    the training thread's aten ops, 409 on a second request) and while the
    probe source is scraped (the hbm_read kernels named);
+7f. drives the workload's step as one CUDA graph, which the runner replays
+   on GPUs: a toy graph of products and peer copies against eager; the
+   one-GPU step and the sharded step over [cuda:0, cuda:0] at the workload
+   defaults, graphed against eager over 8 steps (losses, parameters and
+   gradients; the gradients' storage kept); step time, host issue, ops a
+   step, busy share and memory of each, eager and graphed; the exporter's
+   utilisation per GPU with the graphed runner; over every GPU too when
+   there are several;
 8. times each kernel at the main path's shapes beside its bound, its plain
    version and one PyTorch call computing the same function, and the host
    time of one wrapper call;
@@ -373,7 +381,7 @@ def training_phase(dev, card: str, gen) -> None:
     end.synchronize()
     step_ms = start.elapsed_time(end) / n
     peak = torch.cuda.max_memory_allocated(dev)
-    busy, top, launches = profile_steps(lambda: W.train_step(params, opt, batch, cfg), 3)
+    per_device, top, launches, _ = profile_steps(lambda: W.train_step(params, opt, batch, cfg), 3)
     del params, opt
     print(f"  [{card}]: step time (CUDA events, {n} steps) {step_ms:.3f} ms = "
           f"{flops / step_ms / 1e9:.2f} TFLOP/s counted "
@@ -381,12 +389,14 @@ def training_phase(dev, card: str, gen) -> None:
           f"peak max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB; {peak - base} B above "
           f"the {base} B the script held before the train state)")
     print(f"  host time to issue one step (no readback inside the 10): {issue_ms:.3f} ms")
-    if busy is None:
+    if per_device is None:
         print("  device busy share: not measured (the profiler recorded no device time)")
     else:
-        print(f"  device busy share over 3 steps (profiler): {100 * busy:.2f} %; "
-              f"{launches:.0f} device kernels and copies a step; top by device time per step: "
-              + "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top))
+        dev_ms = sum(per_device.values())
+        print(f"  device busy share {100 * dev_ms / step_ms:.2f} % (device time a step over 3 steps, "
+              f"profiler, {dev_ms:.3f} ms, over the event-timed step); {launches:.0f} device kernels "
+              f"and copies a step; top by device time per step: "
+              + "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top[:5]))
 
     # (d) the exporter serving the workload source
     async def serve() -> str:
@@ -771,8 +781,10 @@ def step_timings(run, devices: list, steps: int) -> dict:
     warm call: ms a step by the host clock with every device synchronised
     and by CUDA events on the current device, the host's time to issue a
     step, the peak memory per distinct device above what it held before,
-    the last call's result, and over 2 more calls the busy share a device
-    and the device kernels and copies a step (profiler)."""
+    the last call's result, and over 2 more calls (profiler) each GPU's
+    device time a step and busy share (that time over the host-clock step),
+    the device kernels and copies a step and the host's launch calls a
+    step."""
     import torch
 
     distinct = _distinct(devices)
@@ -794,10 +806,11 @@ def step_timings(run, devices: list, steps: int) -> dict:
         torch.cuda.synchronize(d)
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
     peak = {str(d): torch.cuda.max_memory_allocated(d) - base[str(d)] for d in distinct}
-    busy, top, ops = profile_steps(run, 2)
+    per_device, top, ops, host_ops = profile_steps(run, 2)
+    busy = None if per_device is None else {i: ms / wall_ms for i, ms in per_device.items()}
     return {"step_ms": wall_ms, "event_ms": start.elapsed_time(end) / steps, "issue_ms": issue_ms,
-            "peak_above_base": peak, "busy": None if busy is None else busy / len(distinct),
-            "ops": ops, "top": top, "steps": steps + 3, "last": last}
+            "peak_above_base": peak, "device_ms": per_device, "busy": busy,
+            "ops": ops, "host_ops": host_ops, "top": top, "steps": steps + 3, "last": last}
 
 
 def print_timings(t: dict, card: str, steps: int) -> None:
@@ -808,8 +821,11 @@ def print_timings(t: dict, card: str, steps: int) -> None:
     if t["busy"] is None:
         print("  device busy share: not measured (the profiler recorded no device time)")
     else:
-        print(f"  busy share a device over 2 steps (profiler) {100 * t['busy']:.2f} %; {t['ops']:.0f} "
-              f"device kernels and copies a step; top: "
+        host = f"{t['host_ops']:.0f}" if t["host_ops"] else "not measured"
+        print("  busy share per GPU (device time a step over 2 steps, profiler, over the host-clock "
+              "step): " + ", ".join(f"cuda:{i} {100 * b:.2f} % ({t['device_ms'][i]:.3f} ms)"
+                                    for i, b in t["busy"].items())
+              + f"; {t['ops']:.0f} device kernels and copies a step, {host} host launch calls a step; top: "
               + "; ".join(f"{name[:48]} {ms:.3f} ms" for name, ms in t["top"][:3]))
 
 
@@ -979,6 +995,285 @@ def dryrun_phase(dev, card: str) -> None:
         check(set(losses) == want, f"dryrun_multichip({n}) gave {sorted(losses)}")
         print(f"dryrun_multichip({n}, [{dev}] * {n}) [{card}] in {time.perf_counter() - t0:.1f} s: "
               + ", ".join(f"{k} {v:.6f}" for k, v in losses.items()))
+
+
+def toy_graph_check(devices: list, card: str) -> None:
+    """One CUDA graph over ``devices`` (``graphed.graph_train_step``) before
+    the model's: a bf16 product on the first device, a peer copy to the next
+    and a product there, and so on, a copy back, the loss, its backward and
+    an AdamW step; replayed 4 times against the same eager steps from the
+    same weights and inputs, the losses and weights bitwise."""
+    import torch
+
+    from tpudash_torch.models import graphed
+    from tpudash_torch.models import workload as W
+
+    dev = devices[0]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ws = [(torch.randn((1024, 1024), generator=g, device=dev) * 1024**-0.5).bfloat16().to(d)
+          for d in devices]
+    xs = [torch.randn((512, 1024), generator=g, device=dev).bfloat16() for _ in range(4)]
+
+    def step(params, opt, x):
+        opt.zero_grad(set_to_none=True)
+        h = x
+        for w in params:
+            h = torch.matmul(h.to(w.device), w)
+        loss = h.to(x.device).float().square().mean()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    def state():
+        params = [w.clone().requires_grad_(True) for w in ws]
+        return params, W._adamw(params, W.WorkloadConfig())
+
+    eager, live = state(), state()
+    replay, _ = graphed.graph_train_step(step, *live, xs[0])
+    losses = [(step(*eager, x).item(), replay(x).item()) for x in xs]
+    for d in _distinct(devices):
+        torch.cuda.synchronize(d)
+    check(all(a == b for a, b in losses), f"toy graph over {devices}: losses {losses}")
+    check(all(torch.equal(a, b) for a, b in zip(eager[0], live[0])),
+          f"toy graph over {devices}: weights differ from eager after 4 steps")
+    print(f"toy graph over {len(devices)} slots ({', '.join(str(d) for d in devices)}) [{card}]: "
+          f"bf16 1024-wide products passed device to device and back, backward and AdamW as one "
+          f"graph; 4 replays equal to eager, losses and weights bitwise")
+
+
+def _flat_tree(tree: dict, plan, get) -> dict:
+    """Name → full tensor of ``get(t)`` over a tree's leaves: the leaves of a
+    one-device tree (``plan`` None), or a sharded tree's row 0 joined."""
+    from tpudash_torch.models import workload as W
+
+    if plan is None:
+        return {n: get(t) for n, t in W.named_leaves(tree)}
+    return {n: plan.join(n, [get(t) for t in rows[0]]) for n, rows in W.named_leaves(tree)}
+
+
+def graphed_vs_eager(what: str, make_state, step, devices: list, plan, card: str,
+                     steps: int = 8) -> dict:
+    """``step`` (the runner's one-device or sharded step) as one CUDA graph
+    against itself run eagerly, from equal states that ``make_state()``
+    gives and on the same ``steps`` batches, against two eager runs: with
+    the backward on one thread, the order of operations that the graph
+    records, and as PyTorch runs it by default, the backward on a thread a
+    device.  Compared: each step's loss, every parameter and gradient after
+    the first step and after the last, and the gradients' storage over the
+    replays.  Bitwise is expected against the first, and against the second
+    on one device; where a comparison is not bitwise, the largest
+    differences are printed and the graph is held to the bounds that hold a
+    sharded step against the unsharded one: each step's loss rel 1e-4, and
+    after one step the gradients within 2^-6 (:func:`grad_rel`) and the
+    parameters by :func:`param_rule`.  Then step time, host issue, ops a
+    step, busy share and memory, eager and graphed."""
+    import torch
+
+    from tpudash_torch.models import graphed
+    from tpudash_torch.models import workload as W
+
+    dev, distinct = devices[0], _distinct(devices)
+    cfg = W.WorkloadConfig(**WORKLOAD_DEFAULTS)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    batches = [torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=g, device=dev)
+               for _ in range(steps)]
+    eager, one_thread, live = make_state(), make_state(), make_state()
+    for d in distinct:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    base = {str(d): (torch.cuda.memory_allocated(d), torch.cuda.memory_reserved(d)) for d in distinct}
+    t0 = time.perf_counter()
+    replay, bufs = graphed.graph_train_step(step, *live, batches[0])
+    capture_s = time.perf_counter() - t0
+    mem = {str(d): (torch.cuda.max_memory_allocated(d) - base[str(d)][0],
+                    torch.cuda.memory_reserved(d) - base[str(d)][1]) for d in distinct}
+    tensors = [p for grp in live[1].param_groups for p in grp["params"]]
+
+    def on_one_thread(t):
+        with torch.autograd.set_multithreading_enabled(False):
+            return step(*one_thread, t)
+
+    runs = {"eager": lambda t: step(*eager, t), "one thread": on_one_thread, "graphed": replay}
+    states = {"eager": eager, "one thread": one_thread, "graphed": live}
+    losses = {k: [] for k in runs}
+    after = {}  # (parameters, gradients) after the first step and after the last
+
+    def snapshot(when):
+        for k, (params, _) in states.items():
+            after[k, when] = (_flat_tree(params, plan, lambda t: t.detach().clone()),
+                              _flat_tree(params, plan, lambda t: t.grad.clone()))
+
+    ptrs = None
+    for i, t in enumerate(batches):
+        for k, run in runs.items():
+            out = run(t)
+            losses[k].append(out.item())
+        check(out is bufs.loss, f"{what}: replay returned another tensor than its static loss")
+        got = [None if p.grad is None else p.grad.data_ptr() for p in tensors]
+        check(None not in got and (ptrs is None or got == ptrs),
+              f"{what}: a gradient is missing or moved between replays")
+        ptrs = got
+        if i == 0:
+            snapshot("first")
+    snapshot("last")
+
+    def same(k) -> bool:
+        return losses[k] == losses["graphed"] and all(
+            torch.equal(a[n], b[n]) for when in ("first", "last")
+            for a, b in zip(after[k, when], after["graphed", when]) for n in a)
+
+    verdicts, bitwise = [], {k: same(k) for k in ("one thread", "eager")}
+    for k in ("one thread", "eager"):
+        if bitwise[k]:
+            verdicts.append(f"bitwise equal to eager {'with its backward on one thread' if k == 'one thread' else 'as PyTorch runs it (a backward thread a device)'}")
+            continue
+        loss_rel = max(abs(a - b) / abs(a) for a, b in zip(losses[k], losses["graphed"]))
+        (p1, g1), (pg1, gg1) = after[k, "first"], after["graphed", "first"]
+        rels = grad_rel(gg1, g1)
+        p_end = max((after[k, "last"][0][n].float() - after["graphed", "last"][0][n].float()).abs().max().item()
+                    for n in p1)
+        print(f"  {what}: graphed and eager ({k}) differ: loss rel up to {loss_rel:.3e} over {steps} steps; "
+              f"after one step gradients rel up to {max(rels.values()):.3e}; parameters after {steps} "
+              f"steps by up to {p_end:.3e}")
+        check(loss_rel <= 1e-4, f"{what}: graphed loss off eager's ({k}) by {loss_rel:.3e} (> 1e-4)")
+        for name, r in rels.items():
+            check(r <= GRAD_LIMIT, f"{what} {name}: graphed gradient off eager's ({k}) by {r:.3e} (> 2^-6)")
+        param_rule(pg1, p1, cfg.lr)
+        verdicts.append(f"against eager ({k}): not bitwise, within the bounds (loss rel {loss_rel:.3e} "
+                        f"≤ 1e-4 every step; after one step gradients ≤ 2^-6 and param_rule)")
+    print(f"  {what} [{card}]: graph captured in {capture_s:.2f} s (2 warm-up steps undone, then the "
+          f"capture); over {steps} steps: " + "; ".join(verdicts) + f"; each .grad kept its storage over "
+          f"the replays; losses {losses['graphed'][0]:.6f} -> {losses['graphed'][-1]:.6f}")
+    print(f"  {what}: memory per device, peak allocated above base during warm-up and capture / "
+          f"reserved after it: "
+          + "; ".join(f"{d} {a / 2**30:.3f} / {r / 2**30:.3f} GiB" for d, (a, r) in mem.items()))
+    del one_thread, after
+    out = {}
+    for label, run in (("eager", lambda: step(*eager, batches[0])), ("graphed", lambda: replay(batches[0]))):
+        t = step_timings(run, devices, 10)
+        check(math.isfinite(t["last"].item()), f"{what} {label}: loss went non-finite")
+        print(f"  {what}, {label}:")
+        print_timings(t, card, 10)
+        out[label] = {k: v for k, v in t.items() if k != "last"}
+    launch_us = []
+    for _ in range(5):  # the host's cost of one replay, the queue empty
+        for d in distinct:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        replay(batches[0])
+        launch_us.append((time.perf_counter() - t0) * 1e6)
+    out["launch_us"] = statistics.median(launch_us)
+    print(f"  {what}: one replay (the tokens' copy and the graph's launch) takes {out['launch_us']:.1f} us "
+          f"of host time with every device idle, median of 5; the host issue above includes waits "
+          f"for room in the launch queue")
+    de, dg = dict(out["eager"]["top"]), dict(out["graphed"]["top"])
+    if de and dg:
+        grew = sorted(set(de) | set(dg), key=lambda k: de.get(k, 0.0) - dg.get(k, 0.0))[:3]
+        print(f"  {what}: device time a step that grew most, eager -> graphed: "
+              + "; ".join(f"{k[:48]} {de.get(k, 0.0):.3f} -> {dg.get(k, 0.0):.3f} ms" for k in grew))
+    out["memory"], out["bitwise"] = mem, bitwise
+    del replay, bufs, eager, live
+    return out
+
+
+def graph_phase(devices: list, card: str, label: str) -> dict:
+    """The workload's step as one CUDA graph (``models/graphed.py``), which
+    the runner replays on GPUs: the toy graph over the distinct GPUs of
+    ``devices``, or over the card named twice where there is one GPU, and
+    over the first two of several; at the workload source's full defaults,
+    the one-GPU step on the first device and the dp×tp sharded step over
+    ``devices``, each graphed against eager (:func:`graphed_vs_eager`); and
+    the exporter over ``devices`` with TorchWorkloadSource, whose runner
+    captures one graph (counted), serving a utilisation per GPU."""
+    import torch
+
+    from tpudash_torch.config import Config
+    from tpudash_torch.exporter.server import WARMUP_TASK, make_app
+    from tpudash_torch.models import runner as runner_mod
+    from tpudash_torch.models import workload as W
+    from tpudash_torch.parallel.mesh import build_mesh, mesh_axes_for
+    from tpudash_torch.schema import TENSORCORE_UTIL
+    from tpudash_torch.sources.workload import WORKLOAD_STEPS_PER_S
+
+    n, dev = len(devices), devices[0]
+    distinct = _distinct(devices)
+    print(f"CUDA graph of the train step over {n} slots ({label}) [{card}]")
+    toy_graph_check(distinct if len(distinct) > 1 else [dev, dev], card)
+    if len(distinct) > 2:
+        toy_graph_check(distinct[:2], card)
+
+    cfg = W.WorkloadConfig(**WORKLOAD_DEFAULTS)
+
+    def one_state():
+        return W.make_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED))
+
+    out = {"one": graphed_vs_eager(f"one-GPU step on {dev}", one_state,
+                                   lambda p, o, t: W.train_step(p, o, t, cfg), [dev], None, card)}
+    gc_cuda(distinct)
+    mesh = build_mesh(mesh_axes_for(n), devices)
+    step, shard_inputs = W.make_sharded_train_step(mesh, cfg)
+    out["sharded"] = graphed_vs_eager(
+        f"sharded step over {n} slots, mesh {mesh.shape}", lambda: shard_inputs(*one_state()), step,
+        devices, W.shard_plan(mesh, cfg), card)
+    gc_cuda(distinct)
+
+    captures = []
+    graph_train_step = runner_mod.graph_train_step
+
+    def counting(*args):
+        captures.append(1)
+        return graph_train_step(*args)
+
+    async def serve() -> dict:
+        from aiohttp.test_utils import TestClient, TestServer
+
+        client = TestClient(TestServer(make_app(Config(source="workload"), devices=devices)))
+        await client.start_server()
+        try:
+            await client.app[WARMUP_TASK]
+            deadline, first = time.monotonic() + 120, None
+            while True:
+                resp = await client.get("/metrics")
+                check(resp.status == 200, f"/metrics status {resp.status}")
+                text = await resp.text()
+                util = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+                    TENSORCORE_UTIL + r'\{[^}]*chip_id="(\d+)"[^}]*\} (\S+)', text)}
+                sps = re.search(WORKLOAD_STEPS_PER_S + r"\{[^}]*\} (\S+)", text)
+                if first is None and len(util) == n and sps and float(sps.group(1)) > 0:
+                    first = time.monotonic()  # the runner's first sync: let its EMA settle
+                if first is not None and time.monotonic() - first > 3.0:
+                    return {"util": util, "steps_per_s": float(sps.group(1))}
+                check(time.monotonic() < deadline, f"/metrics over {n} slots: no utilisation in 120 s")
+                await asyncio.sleep(0.1)
+        finally:
+            await client.close()
+
+    runner_mod.graph_train_step = counting
+    try:
+        served = asyncio.run(serve())
+    finally:
+        runner_mod.graph_train_step = graph_train_step
+    check(captures == [1], f"the runner captured {len(captures)} graphs, not 1")
+    check(sorted(served["util"]) == list(range(n)) and all(0 < u <= 100 for u in served["util"].values()),
+          f"/metrics utilisation per chip {served['util']}")
+    step_ms = 1e3 / served["steps_per_s"]
+    print(f"  exporter, source=workload over {n} slots (the runner captured 1 graph): runner EMA "
+          f"{step_ms:.2f} ms a step, {W.flops_per_step(cfg) / step_ms / 1e9:.2f} TFLOP/s in all; "
+          f"/metrics utilisation per chip: "
+          + ", ".join(f"{i}: {u:.4f} %" for i, u in sorted(served["util"].items())))
+    return {**out, "served": served}
+
+
+def gc_cuda(devices: list) -> None:
+    """Free what the last check left: garbage first, then the cached blocks."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    torch.cuda.empty_cache()
 
 
 def _random_score_inputs(k: int = 64, c: int = 8, seed: int = 7):
@@ -1269,29 +1564,43 @@ def trace_phase(dev, card: str) -> None:
           f"{size_mb:.1f} MB, {len(events)} events: {summary(events)}; hbm_read kernels {read}")
 
 
+#: the CUDA runtime and driver calls that put work on a stream: a host op
+LAUNCH_CALLS = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|GraphLaunch|Memcpy\w*Async|Memset\w*Async)")
+
+
 def profile_steps(fn, n: int):
-    """(busy share, top 5 kernels by device ms per call, device kernels and
-    copies per call) of ``n`` calls of ``fn`` under torch.profiler; (None,
-    [], 0) when it records no device time."""
+    """(device ms per call of each GPU, by index: the CUDA kernels' and
+    copies' own time, the GPU-side ranges of annotations such as
+    ``Optimizer.step`` left out; the kernels by device ms per call, largest
+    first; device kernels and copies per call; host launch calls per call:
+    kernel launches, async copies and sets, graph launches) of ``n`` calls
+    of ``fn`` under torch.profiler; (None, [], 0, 0) when it records no
+    device time.  A busy share divides the device ms by a step time taken
+    without the profiler, whose own host cost would stretch a host-bound
+    step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in events)
-    if total <= 0:
-        return None, [], 0
-    events.sort(key=lambda e: -e.self_device_time_total)
-    return (total / wall_us, [(e.key, e.self_device_time_total / n / 1e3) for e in events[:5]],
-            sum(e.count for e in events) / n)
+    def on_device(e) -> bool:
+        return (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and not getattr(e, "is_user_annotation", False))
+
+    per_device: dict = {}
+    for e in filter(on_device, prof.events()):
+        per_device[e.device_index] = per_device.get(e.device_index, 0.0) + e.self_device_time_total / n / 1e3
+    if not per_device:
+        return None, [], 0, 0
+    averages = prof.key_averages()
+    events = sorted(filter(on_device, averages), key=lambda e: -e.self_device_time_total)
+    return (dict(sorted(per_device.items())), [(e.key, e.self_device_time_total / n / 1e3) for e in events],
+            sum(e.count for e in events) / n,
+            sum(e.count for e in averages if LAUNCH_CALLS.match(e.key)) / n)
 
 
 def main() -> int:
@@ -1591,6 +1900,14 @@ def main() -> int:
     counted("anomaly", lambda: anomaly_phase(every_gpu, card))
     counted("demo", lambda: demo_phase(card), reads=True)
     counted("trace", lambda: trace_phase(dev, card), reads=True)
+
+    # -- 7f. the train step as one CUDA graph -------------------------------------------
+    def graphs() -> None:
+        graph_phase([dev, dev], card, "rehearsal on one card named twice")
+        if n_gpus > 1:
+            graph_phase(every_gpu, card, f"{n_gpus} distinct GPUs")
+
+    counted("graph", graphs)
 
     # -- 8. per-kernel times at the main path's shapes ---------------------------
     x = torch.randn((rows, cols), generator=gen_rng, device=dev)

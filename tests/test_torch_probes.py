@@ -343,7 +343,7 @@ def test_default_device_raises_without_a_gpu(monkeypatch):
 def _port_files():
     return sorted((REPO / "tpudash_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "copy_sweep.py", REPO / "tools" / "ici_check.py",
-        REPO / "tools" / "workload_check.py",
+        REPO / "tools" / "workload_check.py", REPO / "tools" / "graph_threads_check.py",
     ]
 
 

@@ -260,8 +260,27 @@ def test_state_saved_at_tp2_restores_exactly_at_tp4_and_on_one_device(tmp_path):
         assert all(torch.equal(a, b) for a, b in zip(T.leaves(want_params), T.leaves(got_params)))
         for i, st in want_opt["state"].items():
             assert all(torch.equal(got_state["state"][i][k], st[k]) for k in st), i
-    # and the three states train on alike
+    # a capturable AdamW (make_optimizer's on a GPU) restores the same state
+    # exactly; shard_inputs carries it onto the mesh into the live sharded
+    # optimizer, capturable or not as that one is (the CPU's: not)
+    cap_params, _ = T.make_train_state(cfg, torch.Generator().manual_seed(8))
+    cap = T.make_optimizer(cap_params, cfg)
+    for g in cap.param_groups:
+        g["capturable"] = True
+    assert ck.restore_latest(cap_params, cap)[2] == 3 and cap.param_groups[0]["capturable"]
+    sharded_c, opt_c = inputs4(cap_params, cap)
+    assert opt_c.param_groups[0]["capturable"] is False
+    for got_params, got_state in ((T.gather_params(sharded_c, plan4),
+                                   T.gather_optimizer_state(opt_c, sharded_c, plan4)),
+                                  (cap_params, cap.state_dict())):
+        assert all(torch.equal(a, b) for a, b in zip(T.leaves(want_params), T.leaves(got_params)))
+        for i, st in want_opt["state"].items():
+            assert all(torch.equal(got_state["state"][i][k], st[k]) for k in st), i
+    # and the three states train on alike, the one restored through the
+    # capturable optimizer as the other at tp 4
+    a_cap = step4(sharded_c, opt_c, tokens).item()
     a = step4(sharded4, opt4, tokens).item()
+    assert a == a_cap
     b = T.train_step(one, one_opt, tokens, cfg).item()
     c = step2(sharded2, opt2, tokens).item()
     assert abs(a - b) <= SELF_RTOL * b and abs(c - b) <= SELF_RTOL * b

@@ -409,6 +409,15 @@ def _state_equal(a, b):
     return all(torch.equal(x, y) for x, y in zip(T.leaves(a), T.leaves(b)))
 
 
+def _capturable(params, cfg):
+    """The AdamW that ``make_optimizer`` gives on a GPU, over CPU tensors: it
+    loads and saves a state here; only a GPU steps it."""
+    opt = T.make_optimizer(params, cfg)
+    for g in opt.param_groups:
+        g["capturable"] = True
+    return opt
+
+
 def test_checkpoint_round_trip_exact(tmp_path):
     params, opt = T.make_train_state(TINY_CFG, torch.Generator().manual_seed(0))
     tokens = torch.randint(0, TINY_CFG.vocab, (TINY_CFG.batch, TINY_CFG.seq))
@@ -426,6 +435,21 @@ def test_checkpoint_round_trip_exact(tmp_path):
     assert torch.equal(T.train_step(params, opt, tokens, TINY_CFG),
                        T.train_step(p2, o2, tokens, TINY_CFG))
     assert _state_equal(p2, params)
+    # a capturable AdamW's state (make_optimizer's on a GPU) round-trips
+    # exactly too, into a capturable optimizer and into the CPU's
+    p3, _ = T.make_train_state(TINY_CFG, torch.Generator().manual_seed(5))
+    cap = _capturable(p3, TINY_CFG)
+    ck.restore_latest(p3, cap)
+    ck.save(8, p3, cap)
+    for make in (_capturable, T.make_optimizer):
+        p4, _ = T.make_train_state(TINY_CFG, torch.Generator().manual_seed(6))
+        o4 = make(p4, TINY_CFG)
+        assert ck.restore_latest(p4, o4)[2] == 8
+        assert o4.param_groups[0]["capturable"] is (make is _capturable)
+        assert _state_equal(p4, p3)
+        for a, b in zip(T.leaves(p3), T.leaves(p4)):
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(cap.state[a][key], o4.state[b][key])
 
 
 def test_checkpoint_empty_dir_restores_none(tmp_path):

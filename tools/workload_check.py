@@ -7,7 +7,12 @@ A check and measurement tool, not part of the package: nothing imports it.
 It runs ``chip_smoke.sharded_phase`` (the dp×tp sharded train step at the
 workload source's full defaults against the unsharded step, each shard on
 the GPU its plan names, step time, busy share and peak memory per device,
-``TorchWorkloadSource`` and the exporter emitting one chip_id per GPU) and
+``TorchWorkloadSource`` and the exporter emitting one chip_id per GPU),
+``chip_smoke.graph_phase`` over every GPU (the step as one CUDA graph, which
+the runner replays: a toy graph over 2 and over every GPU, then the one-GPU
+step on GPU 0 and the sharded step over every GPU, each graphed against
+eager over 8 steps with step time, host issue, ops, busy share and memory
+of both, and the utilisation per GPU that the exporter serves) and
 ``chip_smoke.ring_phase`` (ring attention at the defaults' shapes against
 its oracle, one ring train step against the plain step), first over
 ``[cuda:0, cuda:0]`` (a rehearsal on one card) and then over every GPU of
@@ -65,6 +70,7 @@ def main(argv: list) -> int:
     if "sharded" in phases:
         chip_smoke.sharded_phase([dev0, dev0], card, gen, "rehearsal on one card named twice")
         chip_smoke.sharded_phase(every_gpu, card, gen, label)
+        chip_smoke.graph_phase(every_gpu, card, label)
     if "ring" in phases:
         chip_smoke.ring_phase([dev0, dev0], card, "rehearsal on one card named twice")
         chip_smoke.ring_phase(every_gpu, card, label)

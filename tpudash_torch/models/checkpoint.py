@@ -21,6 +21,8 @@ import shutil
 
 import torch
 
+from tpudash_torch.models.workload import load_optimizer_state
+
 log = logging.getLogger(__name__)
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -119,7 +121,7 @@ class WorkloadCheckpointer:
             raise CheckpointError(f"{path}: not a workload checkpoint")
         pairs = _pairs(params, tree["params"], path)  # checked before anything is written
         try:
-            optimizer.load_state_dict(tree["opt_state"])
+            load_optimizer_state(optimizer, tree["opt_state"])
         except (ValueError, KeyError, TypeError) as e:
             raise CheckpointError(f"{path}: optimizer state does not fit ({e})") from e
         with torch.no_grad():

@@ -196,7 +196,7 @@ def make_ring_train_step(mesh: Mesh, cfg: w.WorkloadConfig):
             n = len(w.leaves(params))
             # every replica's state a set of tensors of its own: the
             # optimizer updates them in place
-            opt.load_state_dict({
+            w.load_optimizer_state(opt, {
                 "state": {j * n + i: {k: v.clone() if k == "step" else v.to(dev, copy=True)
                                       for k, v in st.items()}
                           for j, dev in enumerate(mesh.devices)

@@ -6,9 +6,11 @@ step time), and current loss.  The probe source measures what the card
 *can* do; the workload runner shows what it *is* doing.
 
 It trains on every local GPU: over several devices with the dp×tp sharded
-step on ``build_mesh(mesh_axes_for(n), devices)``, driven from this one
-thread as the reference's ``jax.jit`` over its local mesh is; on one device
-with the plain step.
+step on ``build_mesh(mesh_axes_for(n), devices)``, on one device with the
+plain step.  On GPUs the step is captured once as one CUDA graph over every
+device and replayed with one launch a step (``models/graphed.py``), as the
+reference dispatches one ``jax.jit`` program a step; on the CPU, which only
+tests ask for, it runs eagerly.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import time
 
 import torch
 
+from tpudash_torch.models.graphed import graph_train_step
 from tpudash_torch.models.workload import (
     WorkloadConfig,
     flops_per_step,
@@ -141,6 +144,15 @@ class WorkloadRunner:
                 def full_state():
                     return params, optimizer
 
+            shape = (cfg.batch, cfg.seq)
+            if dev.type == "cuda":  # a failed capture surfaces as self.error
+                run, _ = graph_train_step(
+                    step, params, optimizer, torch.zeros(shape, dtype=torch.long, device=dev)
+                )
+            else:
+                def run(tokens):
+                    return step(params, optimizer, tokens)
+
             data_gen = torch.Generator(device=dev).manual_seed(1)
             k = self.steps_per_sync
             last_saved = self.steps
@@ -148,10 +160,8 @@ class WorkloadRunner:
                 t0 = time.perf_counter()
                 loss = None
                 for _ in range(k):  # dispatch k steps, sync once
-                    tokens = torch.randint(
-                        0, cfg.vocab, (cfg.batch, cfg.seq), generator=data_gen, device=dev
-                    )
-                    loss = step(params, optimizer, tokens)
+                    tokens = torch.randint(0, cfg.vocab, shape, generator=data_gen, device=dev)
+                    loss = run(tokens)
                 loss_val = loss.item()  # readback = true batch boundary
                 dt = (time.perf_counter() - t0) / k
                 with self._lock:

@@ -176,7 +176,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg: WorkloadConfig) -> torch.Te
     for layer in range(cfg.n_layers):
         # recompute the layer in backward rather than keep its T×T
         # attention probabilities: O(one layer) activation memory
-        x = checkpoint(_block, x, *(b[n][layer] for n in names), cfg, use_reentrant=False)
+        # (nothing in the model draws random numbers, so no RNG state to
+        # stash: a stash reads every device's generator, which a CUDA graph's
+        # capture refuses)
+        x = checkpoint(_block, x, *(b[n][layer] for n in names), cfg, use_reentrant=False,
+                       preserve_rng_state=False)
     x = _rmsnorm(x, params["ln_f"])
     return torch.matmul(x.float(), params["unembed"].float())
 
@@ -192,7 +196,23 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: WorkloadConfig) -> torch.Te
 # --- training ---------------------------------------------------------------
 
 def _adamw(tensors: list, cfg: WorkloadConfig) -> torch.optim.AdamW:
-    return torch.optim.AdamW(tensors, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+    """AdamW over ``tensors``; on GPUs ``capturable``, its step counts and
+    bias corrections on the devices, so that a CUDA graph of the step
+    (``models/graphed.py``) advances them.  The CPU's AdamW refuses
+    ``capturable``."""
+    return torch.optim.AdamW(tensors, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01,
+                             capturable=tensors[0].device.type == "cuda")
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
+    """``optimizer.load_state_dict(state)``, keeping the optimizer's own
+    ``capturable``: a state saved by a non-capturable AdamW (a checkpoint of
+    the port before its step became a CUDA graph, or one saved on the CPU)
+    restores into a capturable one with its step counts moved to each
+    parameter's device, and the other way round."""
+    groups = [{**saved, "capturable": live["capturable"]}
+              for saved, live in zip(state["param_groups"], optimizer.param_groups, strict=True)]
+    optimizer.load_state_dict({**state, "param_groups": groups})
 
 
 def make_optimizer(params: dict, cfg: WorkloadConfig) -> torch.optim.AdamW:
@@ -398,7 +418,7 @@ def gather_train_state(sharded: dict, optimizer: torch.optim.Optimizer, plan: Sh
     for p in leaves(params):
         p.requires_grad_(True)
     opt = make_optimizer(params, plan.cfg)
-    opt.load_state_dict(gather_optimizer_state(optimizer, sharded, plan))
+    load_optimizer_state(opt, gather_optimizer_state(optimizer, sharded, plan))
     return params, opt
 
 
@@ -477,10 +497,12 @@ def checkpoint_across_devices(fn, *tensors):
     set"); the reentrant form recomputes once, in the thread of its one
     backward node.  It tracks the gradients of top-level tensor arguments
     only, so ``fn`` takes every tensor flat.  With nothing to
-    differentiate it calls ``fn``: there is nothing to recompute."""
+    differentiate it calls ``fn``: there is nothing to recompute.  No RNG
+    state is stashed for the recompute: nothing in the models draws random
+    numbers, and a CUDA graph's capture refuses the stash."""
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
         return fn(*tensors)
-    return checkpoint(fn, *tensors, use_reentrant=True)
+    return checkpoint(fn, *tensors, use_reentrant=True, preserve_rng_state=False)
 
 
 def _sharded_block(cfg, aligned, h, ln1, ln2, *shards):
@@ -580,7 +602,7 @@ def plan_train_step(plan, loss_fn):
             t.requires_grad_(True)
         opt = _adamw(tensors, plan.cfg)
         if optimizer is not None and optimizer.state:
-            opt.load_state_dict(shard_optimizer_state(optimizer.state_dict(), sharded, plan))
+            load_optimizer_state(opt, shard_optimizer_state(optimizer.state_dict(), sharded, plan))
         return sharded, opt
 
     def step(sharded: dict, optimizer: torch.optim.Optimizer, tokens: torch.Tensor) -> torch.Tensor:
