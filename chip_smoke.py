@@ -22,7 +22,8 @@ From the root of a checkout, on a host with one H100:
    init, TorchWorkloadSource training until 3 syncs with falling loss, step
    time, TFLOP/s and peak memory, and the exporter serving the workload;
    then the dp×tp sharded step at the same defaults over [cuda:0, cuda:0]
-   (a rehearsal: the mesh's maths on one card, not its placement) against
+   (a rehearsal: the mesh's maths on one card, not its placement; like
+   every make_*_train_step's step, compiled: one CUDA graph on GPUs) against
    the unsharded step, with TorchWorkloadSource and the exporter emitting
    chip_id 0 and 1; then ring attention at the defaults' shapes over an sp
    ring of the same two slots against its oracle, and one ring train step;
@@ -31,8 +32,8 @@ From the root of a checkout, on a host with one H100:
    and dp 2 × pp 2 (M = 4), the 3D step at dp 1 × pp 2 × tp 2 (M = 2), each
    against the unsharded loss and gradients; the MoE at the workload's
    widths at ep 1 and ep 2, its expert FFN against the dense oracle; the
-   dry run over the card named 2 and 4 times; each over every GPU too when
-   there are several;
+   dry run over the card named 2 and 4 times (one graph captured a path);
+   each over every GPU too when there are several;
 7e. drives the last modules: the anomaly scorer on every GPU against
    numpy's float32 z-score; the demo (start_demo at the exporter's
    defaults, the dashboard child's first frame, nothing left running after
@@ -46,8 +47,13 @@ From the root of a checkout, on a host with one H100:
    defaults, graphed against eager over 8 steps (losses, parameters and
    gradients; the gradients' storage kept); step time, host issue, ops a
    step, busy share and memory of each, eager and graphed; the exporter's
-   utilisation per GPU with the graphed runner; over every GPU too when
-   there are several;
+   utilisation per GPU with the graphed runner (one capture, counted);
+   over every GPU too when there are several;
+7g. drives every other make_*_train_step's step as one CUDA graph at
+   full width on the card named 1–4 times: GPipe at dp 1 × pp 2 and dp 2
+   × pp 2 (M 4), the 3D step at dp 1 × pp 2 × tp 2 (M 2), the MoE at ep 1
+   and ep 2, the ring step at dp 1 × sp 2, each graphed against its eager
+   step as in 7f (one capture, at most 3 host launch calls a step);
 8. times each kernel at the main path's shapes beside its bound, its plain
    version and one PyTorch call computing the same function, and the host
    time of one wrapper call;
@@ -62,6 +68,7 @@ It refuses to run without a GPU, and outside a checkout.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import math
 import re
@@ -985,16 +992,41 @@ def moe_phase(devices: list, card: str, label: str) -> dict:
 
 def dryrun_phase(dev, card: str) -> None:
     """``dryrun_multichip`` over the card named 2 and 4 times: every
-    parallel step at the tiny configuration, the 3D one at n = 4."""
+    parallel step at the tiny configuration, the 3D one at n = 4, each
+    captured as one CUDA graph (counted: one a path, as the reference jits
+    one program a path) and its loss finite."""
     from tpudash_torch.dryrun import dryrun_multichip
 
     for n in (2, 4):
         t0 = time.perf_counter()
-        losses = dryrun_multichip(n, [dev] * n)
+        with counted_captures() as captures:
+            losses = dryrun_multichip(n, [dev] * n)
         want = {"sharded", "ring", "pipeline", "moe"} | ({"3d"} if n % 4 == 0 else set())
         check(set(losses) == want, f"dryrun_multichip({n}) gave {sorted(losses)}")
-        print(f"dryrun_multichip({n}, [{dev}] * {n}) [{card}] in {time.perf_counter() - t0:.1f} s: "
-              + ", ".join(f"{k} {v:.6f}" for k, v in losses.items()))
+        check(len(captures) == len(want), f"dryrun_multichip({n}) captured {len(captures)} graphs, "
+              f"not one a path ({len(want)})")
+        print(f"dryrun_multichip({n}, [{dev}] * {n}) [{card}] in {time.perf_counter() - t0:.1f} s, "
+              f"{len(captures)} graphs captured: " + ", ".join(f"{k} {v:.6f}" for k, v in losses.items()))
+
+
+@contextlib.contextmanager
+def counted_captures():
+    """Count the CUDA graphs that the body captures: yields a list that
+    grows by one at each ``graphed.graph_train_step`` call (the capture of
+    every compiled step and of the runner's)."""
+    from tpudash_torch.models import graphed
+
+    capture, captures = graphed.graph_train_step, []
+
+    def counting(*args):
+        captures.append(1)
+        return capture(*args)
+
+    graphed.graph_train_step = counting
+    try:
+        yield captures
+    finally:
+        graphed.graph_train_step = capture
 
 
 def toy_graph_check(devices: list, card: str) -> None:
@@ -1029,7 +1061,7 @@ def toy_graph_check(devices: list, card: str) -> None:
         return params, W._adamw(params, W.WorkloadConfig())
 
     eager, live = state(), state()
-    replay, _ = graphed.graph_train_step(step, *live, xs[0])
+    replay = graphed.graph_train_step(step, *live, xs[0])
     losses = [(step(*eager, x).item(), replay(x).item()) for x in xs]
     for d in _distinct(devices):
         torch.cuda.synchronize(d)
@@ -1041,59 +1073,61 @@ def toy_graph_check(devices: list, card: str) -> None:
           f"graph; 4 replays equal to eager, losses and weights bitwise")
 
 
-def _flat_tree(tree: dict, plan, get) -> dict:
+def _flat_tree(tree, plan, get) -> dict:
     """Name → full tensor of ``get(t)`` over a tree's leaves: the leaves of a
-    one-device tree (``plan`` None), or a sharded tree's row 0 joined."""
+    one-device tree (``plan`` None), of each tree of a tuple of replicas
+    (the ring's; name[j] for replica j), or a sharded tree's row 0
+    joined."""
     from tpudash_torch.models import workload as W
 
+    if isinstance(tree, tuple):
+        return {f"{n}[{j}]": get(t) for j, rep in enumerate(tree) for n, t in W.named_leaves(rep)}
     if plan is None:
         return {n: get(t) for n, t in W.named_leaves(tree)}
     return {n: plan.join(n, [get(t) for t in rows[0]]) for n, rows in W.named_leaves(tree)}
 
 
-def graphed_vs_eager(what: str, make_state, step, devices: list, plan, card: str,
+def graphed_vs_eager(what: str, make_state, step, devices: list, plan, card: str, cfg,
                      steps: int = 8) -> dict:
-    """``step`` (the runner's one-device or sharded step) as one CUDA graph
-    against itself run eagerly, from equal states that ``make_state()``
-    gives and on the same ``steps`` batches, against two eager runs: with
-    the backward on one thread, the order of operations that the graph
+    """A compiled step (``graphed.compiled``: a ``make_*_train_step``'s, or the runner's
+    one-device step) against its ``step.eager``, from equal states that
+    ``make_state()`` gives and on the same ``steps`` batches of ``cfg``'s
+    shape: the compiled step captures one graph (counted) at its first
+    call and replays it at every later one; the eager step runs with the
+    backward on one thread, the order of operations that the graph
     records, and as PyTorch runs it by default, the backward on a thread a
     device.  Compared: each step's loss, every parameter and gradient after
-    the first step and after the last, and the gradients' storage over the
-    replays.  Bitwise is expected against the first, and against the second
-    on one device; where a comparison is not bitwise, the largest
-    differences are printed and the graph is held to the bounds that hold a
-    sharded step against the unsharded one: each step's loss rel 1e-4, and
-    after one step the gradients within 2^-6 (:func:`grad_rel`) and the
-    parameters by :func:`param_rule`.  Then step time, host issue, ops a
-    step, busy share and memory, eager and graphed."""
+    the first step and after the last, the gradients' storage over the
+    replays, and that each call returns a loss of its own.  Bitwise is
+    expected against the first, and against the second on one device;
+    where a comparison is not bitwise, the largest differences are printed
+    and the graph is held to the bounds that hold a sharded step against the
+    unsharded one: each step's loss rel 1e-4, and after one step the
+    gradients within 2^-6 (:func:`grad_rel`) and the parameters by
+    :func:`param_rule`.  Then step time, host issue, ops and host launch
+    calls a step (at most 3 graphed: the tokens' copy, the graph's launch
+    and the loss's copy), busy share and memory, eager and graphed."""
     import torch
 
-    from tpudash_torch.models import graphed
-    from tpudash_torch.models import workload as W
-
     dev, distinct = devices[0], _distinct(devices)
-    cfg = W.WorkloadConfig(**WORKLOAD_DEFAULTS)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     batches = [torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=g, device=dev)
                for _ in range(steps)]
     eager, one_thread, live = make_state(), make_state(), make_state()
-    for d in distinct:
-        torch.cuda.synchronize(d)
-        torch.cuda.reset_peak_memory_stats(d)
-    base = {str(d): (torch.cuda.memory_allocated(d), torch.cuda.memory_reserved(d)) for d in distinct}
-    t0 = time.perf_counter()
-    replay, bufs = graphed.graph_train_step(step, *live, batches[0])
-    capture_s = time.perf_counter() - t0
-    mem = {str(d): (torch.cuda.max_memory_allocated(d) - base[str(d)][0],
-                    torch.cuda.memory_reserved(d) - base[str(d)][1]) for d in distinct}
     tensors = [p for grp in live[1].param_groups for p in grp["params"]]
 
     def on_one_thread(t):
         with torch.autograd.set_multithreading_enabled(False):
-            return step(*one_thread, t)
+            return step.eager(*one_thread, t)
 
-    runs = {"eager": lambda t: step(*eager, t), "one thread": on_one_thread, "graphed": replay}
+    calls = []
+
+    def compiled_call(t):
+        calls.append(1)
+        return step(*live, t)
+
+    runs = {"graphed": compiled_call, "eager": lambda t: step.eager(*eager, t),
+            "one thread": on_one_thread}
     states = {"eager": eager, "one thread": one_thread, "graphed": live}
     losses = {k: [] for k in runs}
     after = {}  # (parameters, gradients) after the first step and after the last
@@ -1103,19 +1137,34 @@ def graphed_vs_eager(what: str, make_state, step, devices: list, plan, card: str
             after[k, when] = (_flat_tree(params, plan, lambda t: t.detach().clone()),
                               _flat_tree(params, plan, lambda t: t.grad.clone()))
 
-    ptrs = None
-    for i, t in enumerate(batches):
-        for k, run in runs.items():
-            out = run(t)
-            losses[k].append(out.item())
-        check(out is bufs.loss, f"{what}: replay returned another tensor than its static loss")
-        got = [None if p.grad is None else p.grad.data_ptr() for p in tensors]
-        check(None not in got and (ptrs is None or got == ptrs),
-              f"{what}: a gradient is missing or moved between replays")
-        ptrs = got
-        if i == 0:
-            snapshot("first")
-    snapshot("last")
+    with counted_captures() as captures:
+        ptrs, outs = None, []
+        for i, t in enumerate(batches):
+            if i == 0:  # the capture (warm-up, undone) and the first replay
+                for d in distinct:
+                    torch.cuda.synchronize(d)
+                    torch.cuda.reset_peak_memory_stats(d)
+                base = {str(d): (torch.cuda.memory_allocated(d), torch.cuda.memory_reserved(d))
+                        for d in distinct}
+                t0 = time.perf_counter()
+            for k, run in runs.items():
+                out = run(t)
+                losses[k].append(out.item())
+                if i == 0 and k == "graphed":
+                    capture_s = time.perf_counter() - t0
+                    mem = {str(d): (torch.cuda.max_memory_allocated(d) - base[str(d)][0],
+                                    torch.cuda.memory_reserved(d) - base[str(d)][1]) for d in distinct}
+                if k == "graphed":
+                    outs.append(out)
+            got = [None if p.grad is None else p.grad.data_ptr() for p in tensors]
+            check(None not in got and (ptrs is None or got == ptrs),
+                  f"{what}: a gradient is missing or moved between replays")
+            ptrs = got
+            if i == 0:
+                snapshot("first")
+        snapshot("last")
+        check(len({id(o) for o in outs}) == steps and [o.item() for o in outs] == losses["graphed"],
+              f"{what}: the calls' losses are not each a tensor of their own")
 
     def same(k) -> bool:
         return losses[k] == losses["graphed"] and all(
@@ -1141,38 +1190,46 @@ def graphed_vs_eager(what: str, make_state, step, devices: list, plan, card: str
         param_rule(pg1, p1, cfg.lr)
         verdicts.append(f"against eager ({k}): not bitwise, within the bounds (loss rel {loss_rel:.3e} "
                         f"≤ 1e-4 every step; after one step gradients ≤ 2^-6 and param_rule)")
-    print(f"  {what} [{card}]: graph captured in {capture_s:.2f} s (2 warm-up steps undone, then the "
-          f"capture); over {steps} steps: " + "; ".join(verdicts) + f"; each .grad kept its storage over "
-          f"the replays; losses {losses['graphed'][0]:.6f} -> {losses['graphed'][-1]:.6f}")
-    print(f"  {what}: memory per device, peak allocated above base during warm-up and capture / "
-          f"reserved after it: "
+    print(f"  {what} [{card}]: graph captured and replayed once in {capture_s:.2f} s (2 warm-up steps "
+          f"undone, the capture, the first step); over {steps} steps: " + "; ".join(verdicts)
+          + f"; each .grad kept its storage over the replays; each call's loss a tensor of its own; "
+          f"losses {losses['graphed'][0]:.6f} -> {losses['graphed'][-1]:.6f}")
+    print(f"  {what}: memory per device, peak allocated above base during warm-up, capture and the "
+          f"first step / reserved after it: "
           + "; ".join(f"{d} {a / 2**30:.3f} / {r / 2**30:.3f} GiB" for d, (a, r) in mem.items()))
     del one_thread, after
     out = {}
-    for label, run in (("eager", lambda: step(*eager, batches[0])), ("graphed", lambda: replay(batches[0]))):
-        t = step_timings(run, devices, 10)
-        check(math.isfinite(t["last"].item()), f"{what} {label}: loss went non-finite")
-        print(f"  {what}, {label}:")
-        print_timings(t, card, 10)
-        out[label] = {k: v for k, v in t.items() if k != "last"}
-    launch_us = []
-    for _ in range(5):  # the host's cost of one replay, the queue empty
-        for d in distinct:
-            torch.cuda.synchronize(d)
-        t0 = time.perf_counter()
-        replay(batches[0])
-        launch_us.append((time.perf_counter() - t0) * 1e6)
+    with counted_captures() as more:
+        for label, run in (("eager", lambda: step.eager(*eager, batches[0])),
+                           ("graphed", lambda: compiled_call(batches[0]))):
+            t = step_timings(run, devices, 10)
+            check(math.isfinite(t["last"].item()), f"{what} {label}: loss went non-finite")
+            print(f"  {what}, {label}:")
+            print_timings(t, card, 10)
+            out[label] = {k: v for k, v in t.items() if k != "last"}
+        launch_us = []
+        for _ in range(5):  # the host's cost of one call, the queue empty
+            for d in distinct:
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            compiled_call(batches[0])
+            launch_us.append((time.perf_counter() - t0) * 1e6)
+    check(captures == [1] and more == [], f"{what}: {len(captures) + len(more)} captures, not 1")
+    host_ops = out["graphed"]["host_ops"]
+    check(not host_ops or host_ops <= 3, f"{what}: {host_ops} host launch calls a graphed step, not ≤ 3")
     out["launch_us"] = statistics.median(launch_us)
-    print(f"  {what}: one replay (the tokens' copy and the graph's launch) takes {out['launch_us']:.1f} us "
-          f"of host time with every device idle, median of 5; the host issue above includes waits "
-          f"for room in the launch queue")
+    ratio = out["graphed"]["step_ms"] / out["eager"]["step_ms"]
+    print(f"  {what}: 1 capture over {len(calls)} calls; one call (the tokens' copy, the graph's launch, "
+          f"the loss's copy) takes {out['launch_us']:.1f} us of host time with every device idle, median "
+          f"of 5; the host issue above includes waits for room in the launch queue; graphed / eager step "
+          f"time {ratio:.4f}")
     de, dg = dict(out["eager"]["top"]), dict(out["graphed"]["top"])
     if de and dg:
         grew = sorted(set(de) | set(dg), key=lambda k: de.get(k, 0.0) - dg.get(k, 0.0))[:3]
         print(f"  {what}: device time a step that grew most, eager -> graphed: "
               + "; ".join(f"{k[:48]} {de.get(k, 0.0):.3f} -> {dg.get(k, 0.0):.3f} ms" for k in grew))
-    out["memory"], out["bitwise"] = mem, bitwise
-    del replay, bufs, eager, live
+    out["memory"], out["bitwise"], out["ratio"] = mem, bitwise, ratio
+    del eager, live
     return out
 
 
@@ -1189,7 +1246,7 @@ def graph_phase(devices: list, card: str, label: str) -> dict:
 
     from tpudash_torch.config import Config
     from tpudash_torch.exporter.server import WARMUP_TASK, make_app
-    from tpudash_torch.models import runner as runner_mod
+    from tpudash_torch.models import graphed
     from tpudash_torch.models import workload as W
     from tpudash_torch.parallel.mesh import build_mesh, mesh_axes_for
     from tpudash_torch.schema import TENSORCORE_UTIL
@@ -1208,21 +1265,15 @@ def graph_phase(devices: list, card: str, label: str) -> dict:
         return W.make_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED))
 
     out = {"one": graphed_vs_eager(f"one-GPU step on {dev}", one_state,
-                                   lambda p, o, t: W.train_step(p, o, t, cfg), [dev], None, card)}
+                                   graphed.compiled(lambda p, o, t: W.train_step(p, o, t, cfg)),
+                                   [dev], None, card, cfg)}
     gc_cuda(distinct)
     mesh = build_mesh(mesh_axes_for(n), devices)
     step, shard_inputs = W.make_sharded_train_step(mesh, cfg)
     out["sharded"] = graphed_vs_eager(
         f"sharded step over {n} slots, mesh {mesh.shape}", lambda: shard_inputs(*one_state()), step,
-        devices, W.shard_plan(mesh, cfg), card)
+        devices, W.shard_plan(mesh, cfg), card, cfg)
     gc_cuda(distinct)
-
-    captures = []
-    graph_train_step = runner_mod.graph_train_step
-
-    def counting(*args):
-        captures.append(1)
-        return graph_train_step(*args)
 
     async def serve() -> dict:
         from aiohttp.test_utils import TestClient, TestServer
@@ -1240,19 +1291,19 @@ def graph_phase(devices: list, card: str, label: str) -> dict:
                     TENSORCORE_UTIL + r'\{[^}]*chip_id="(\d+)"[^}]*\} (\S+)', text)}
                 sps = re.search(WORKLOAD_STEPS_PER_S + r"\{[^}]*\} (\S+)", text)
                 if first is None and len(util) == n and sps and float(sps.group(1)) > 0:
-                    first = time.monotonic()  # the runner's first sync: let its EMA settle
-                if first is not None and time.monotonic() - first > 3.0:
+                    # the runner's first sync holds the capture, as the
+                    # reference's holds jax.jit's compile: 10 s of syncs
+                    # leave it a weight of 0.7^15 or less in the EMA
+                    first = time.monotonic()
+                if first is not None and time.monotonic() - first > 10.0:
                     return {"util": util, "steps_per_s": float(sps.group(1))}
                 check(time.monotonic() < deadline, f"/metrics over {n} slots: no utilisation in 120 s")
                 await asyncio.sleep(0.1)
         finally:
             await client.close()
 
-    runner_mod.graph_train_step = counting
-    try:
+    with counted_captures() as captures:
         served = asyncio.run(serve())
-    finally:
-        runner_mod.graph_train_step = graph_train_step
     check(captures == [1], f"the runner captured {len(captures)} graphs, not 1")
     check(sorted(served["util"]) == list(range(n)) and all(0 < u <= 100 for u in served["util"].values()),
           f"/metrics utilisation per chip {served['util']}")
@@ -1262,6 +1313,57 @@ def graph_phase(devices: list, card: str, label: str) -> dict:
           f"/metrics utilisation per chip: "
           + ", ".join(f"{i}: {u:.4f} %" for i, u in sorted(served["util"].items())))
     return {**out, "served": served}
+
+
+def path_graph_phase(kind: str, devices: list, axes: dict, card: str, label: str,
+                     microbatches: int = 0) -> dict:
+    """A ``make_*_train_step``'s step at full width over ``devices`` (a mesh of ``axes``)
+    graphed against eager (:func:`graphed_vs_eager`): ``kind`` "pipeline"
+    (GPipe over dp, pp, with ``microbatches``), "pipeline3d" (dp, pp, tp),
+    "moe" (ep, at :data:`MOE_DEFAULTS`) or "ring" (dp, sp); the others at
+    :data:`WORKLOAD_DEFAULTS`."""
+    import torch
+
+    from tpudash_torch.models import moe as MO
+    from tpudash_torch.models import pipeline as PL
+    from tpudash_torch.models import ring_attention as R
+    from tpudash_torch.models import workload as W
+    from tpudash_torch.parallel.mesh import build_mesh
+
+    mesh, dev = build_mesh(axes, devices), devices[0]
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED)
+
+    plan = None
+    if kind == "moe":
+        cfg = MO.MoEConfig(**MOE_DEFAULTS)
+        step, shard_inputs = MO.make_moe_train_step(mesh, cfg)
+        plan, name = MO.moe_plan(mesh, cfg), "MoE step"
+
+        def make_state():
+            return shard_inputs(*MO.make_moe_train_state(cfg, gen()))
+    elif kind == "ring":
+        cfg = W.WorkloadConfig(**WORKLOAD_DEFAULTS)
+        step, shard_inputs = R.make_ring_train_step(mesh, cfg)
+        name = "ring step"
+
+        def make_state():
+            return shard_inputs(*W.make_train_state(cfg, gen()))
+    else:
+        cfg = W.WorkloadConfig(**WORKLOAD_DEFAULTS)
+        three_d = kind == "pipeline3d"
+        make = PL.make_pipeline3d_train_step if three_d else PL.make_pipeline_train_step
+        step, shard_inputs = make(mesh, cfg, microbatches)
+        plan, name = PL.pipeline_plan(mesh, cfg), f"{'3D' if three_d else 'GPipe'} step, M = {microbatches},"
+
+        def make_state():
+            params = W.init_params(cfg, gen())
+            return shard_inputs(PL.convert_params_3d(params) if three_d else params, None)
+    out = graphed_vs_eager(f"{name} over {len(devices)} slots ({label}), mesh {mesh.shape}", make_state,
+                           step, devices, plan, card, cfg)
+    gc_cuda(_distinct(devices))
+    return out
 
 
 def gc_cuda(devices: list) -> None:
@@ -1908,6 +2010,21 @@ def main() -> int:
             graph_phase(every_gpu, card, f"{n_gpus} distinct GPUs")
 
     counted("graph", graphs)
+
+    # -- 7g. every other make_*_train_step's step as one CUDA graph, against eager ------
+    def path_graphs() -> None:
+        for kind, n, axes, m in (("pipeline", 2, {"dp": 1, "pp": 2}, 4),
+                                 ("pipeline", 4, {"dp": 2, "pp": 2}, 4),
+                                 ("pipeline3d", 4, {"dp": 1, "pp": 2, "tp": 2}, 2),
+                                 ("moe", 1, {"ep": 1}, 0),
+                                 ("moe", 2, {"ep": 2}, 0),
+                                 ("ring", 2, {"dp": 1, "sp": 2}, 0)):
+            path_graph_phase(kind, [dev] * n, axes, card,
+                             "one card" if n == 1 else f"one card named {n} times", m)
+        print("these steps' graphs over distinct GPUs: tools/workload_check.py --phases "
+              "ring,pipeline,pipeline3d,moe")
+
+    counted("path graphs", path_graphs)
 
     # -- 8. per-kernel times at the main path's shapes ---------------------------
     x = torch.randn((rows, cols), generator=gen_rng, device=dev)

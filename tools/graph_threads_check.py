@@ -47,6 +47,7 @@ def run_case(case: str) -> int:
     cfg = W.WorkloadConfig(**chip_smoke.WORKLOAD_DEFAULTS)
     mesh = build_mesh(mesh_axes_for(len(devices)), devices)
     step, shard_inputs = W.make_sharded_train_step(mesh, cfg)
+    step = step.eager  # captured here by hand, in each case's mode
 
     def state():
         gen = torch.Generator(device=devices[0]).manual_seed(0)
@@ -61,7 +62,7 @@ def run_case(case: str) -> int:
         # autograd's worker threads stay on through the warm-up and the capture
         graphed.torch.autograd.set_multithreading_enabled = lambda mode: contextlib.nullcontext()
     try:
-        replay, _ = graphed.graph_train_step(step, *live, batches[0])
+        replay = graphed.graph_train_step(step, *live, batches[0])
         got = [replay(t).item() for t in batches]
     except Exception as e:  # noqa: BLE001 — the error is the finding
         print(f"{case}: capture FAILED: {type(e).__name__}: {str(e).splitlines()[0][:300]}")

@@ -4,25 +4,43 @@
     python3 tools/workload_check.py [--phases sharded,ring,pipeline,pipeline3d,moe]
 
 A check and measurement tool, not part of the package: nothing imports it.
-It runs ``chip_smoke.sharded_phase`` (the dp×tp sharded train step at the
-workload source's full defaults against the unsharded step, each shard on
-the GPU its plan names, step time, busy share and peak memory per device,
-``TorchWorkloadSource`` and the exporter emitting one chip_id per GPU),
-``chip_smoke.graph_phase`` over every GPU (the step as one CUDA graph, which
-the runner replays: a toy graph over 2 and over every GPU, then the one-GPU
-step on GPU 0 and the sharded step over every GPU, each graphed against
-eager over 8 steps with step time, host issue, ops, busy share and memory
-of both, and the utilisation per GPU that the exporter serves) and
-``chip_smoke.ring_phase`` (ring attention at the defaults' shapes against
-its oracle, one ring train step against the plain step), first over
-``[cuda:0, cuda:0]`` (a rehearsal on one card) and then over every GPU of
-the host; then, over every GPU, ``chip_smoke.pipeline_phase`` as GPipe at
-dp 1 × pp n and as the 3D step at dp n/4 × pp 2 × tp 2, and
-``chip_smoke.moe_phase`` at ep n (each part on the GPU its plan names,
-loss and gradients against the unsharded step, step time, host issue,
-busy share and peak memory per GPU).  ``chip_smoke.py`` runs their
-rehearsals on one card.  ``--phases`` picks which run (all by default).
-It fails on a host with fewer than two GPUs, and on any failed check.
+Every ``make_*_train_step``'s step is compiled (``graphed.compiled``): on
+GPUs one CUDA graph over every GPU of its mesh, captured at the first
+call.  By phase:
+
+- ``sharded``: ``chip_smoke.sharded_phase`` (the dp×tp sharded step,
+  graphed, at the workload source's full defaults against the unsharded
+  step: loss, gradients and parameters after one step, each shard on the
+  GPU its plan names; step time, host issue, busy share and peak memory
+  per device; ``TorchWorkloadSource`` and the exporter emitting one
+  chip_id per GPU) over ``[cuda:0, cuda:0]`` (a rehearsal on one card),
+  then over every GPU; then ``chip_smoke.graph_phase`` over every GPU (a
+  toy graph over 2 and over every GPU; the one-GPU step on GPU 0 and the
+  sharded step over every GPU, each graphed against its eager step over 8
+  steps: bitwise against eager with its backward on one thread, bitwise or
+  within the sharded bounds against eager as PyTorch runs it; step time,
+  host issue, ops and host launch calls a step, busy share and memory of
+  both; the runner capturing one graph and the exporter serving a
+  utilisation per GPU);
+- ``ring``: ``chip_smoke.ring_phase`` (ring attention at the defaults'
+  shapes against its oracle; the graphed ring step's loss against the
+  plain step's, its replicas bitwise equal) over ``[cuda:0, cuda:0]``,
+  then over every GPU; then the ring step over every GPU (dp × sp as
+  ``mesh_axes_for`` splits n) graphed against eager as in ``graph_phase``
+  (``chip_smoke.path_graph_phase``);
+- ``pipeline``: ``chip_smoke.pipeline_phase`` (graphed GPipe at dp 1 × pp
+  n, M 4, against the unsharded step: loss, gradients, dp replicas, each
+  part on the GPU its plan names; step time, host issue, busy share and
+  peak memory per GPU), then the same step graphed against eager;
+- ``pipeline3d``: the same for the 3D step at dp n/4 × pp 2 × tp 2, M 2;
+- ``moe``: ``chip_smoke.moe_phase`` at ep n (the expert FFN against the
+  dense oracle, the graphed step's loss, the share dropped, step time,
+  host issue, busy share and peak memory per GPU), then the MoE step
+  graphed against eager.
+
+``chip_smoke.py`` runs their rehearsals on one card.  ``--phases`` picks
+which run (all by default).  It fails on a host with fewer than two GPUs,
+and on any failed check.
 """
 
 from __future__ import annotations
@@ -51,6 +69,7 @@ def main(argv: list) -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from tpudash_torch.ops import kernels
+    from tpudash_torch.parallel.mesh import mesh_axes_for
     from tpudash_torch.registry import DEFAULT_GENERATION, resolve_generation_from_device_name
 
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -74,20 +93,29 @@ def main(argv: list) -> int:
     if "ring" in phases:
         chip_smoke.ring_phase([dev0, dev0], card, "rehearsal on one card named twice")
         chip_smoke.ring_phase(every_gpu, card, label)
+        sp = mesh_axes_for(n)["tp"]
+        chip_smoke.path_graph_phase("ring", every_gpu, {"dp": n // sp, "sp": sp}, card, label)
     n_layers, n_experts = chip_smoke.WORKLOAD_DEFAULTS["n_layers"], chip_smoke.MOE_DEFAULTS["n_experts"]
     if "pipeline" in phases:
         if n_layers % n == 0:
             chip_smoke.pipeline_phase(every_gpu, card, label, {"dp": 1, "pp": n}, 4)
+            chip_smoke.gc_cuda(every_gpu)
+            chip_smoke.path_graph_phase("pipeline", every_gpu, {"dp": 1, "pp": n}, card, label, 4)
         else:
             print(f"pipeline over {n} GPUs: NOT RUN ({n_layers} layers do not split over pp {n})")
     if "pipeline3d" in phases:
         if n % 4 == 0:
-            chip_smoke.pipeline_phase(every_gpu, card, label, {"dp": n // 4, "pp": 2, "tp": 2}, 2)
+            axes = {"dp": n // 4, "pp": 2, "tp": 2}
+            chip_smoke.pipeline_phase(every_gpu, card, label, axes, 2)
+            chip_smoke.gc_cuda(every_gpu)
+            chip_smoke.path_graph_phase("pipeline3d", every_gpu, axes, card, label, 2)
         else:
             print(f"3D step over {n} GPUs: NOT RUN (it needs a multiple of 4)")
     if "moe" in phases:
         if n_experts % n == 0:
             chip_smoke.moe_phase(every_gpu, card, label)
+            chip_smoke.gc_cuda(every_gpu)
+            chip_smoke.path_graph_phase("moe", every_gpu, {"ep": n}, card, label)
         else:
             print(f"MoE over {n} GPUs: NOT RUN ({n_experts} experts do not split over ep {n})")
     counts = kernels.launch_counts()

@@ -10,7 +10,10 @@
   sizing, each checked for a finite loss.
 
 Both run on the GPU unless given CPU devices (``entry("cpu")``,
-``dryrun_multichip(8, ["cpu"] * 8)``).
+``dryrun_multichip(8, ["cpu"] * 8)``).  On GPUs each path's step is
+captured as one CUDA graph over its devices and replayed once, as the
+reference jits each (every ``make_*_train_step`` returns
+``graphed.compiled``); on CPU devices each runs eagerly.
 """
 
 from __future__ import annotations

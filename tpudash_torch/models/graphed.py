@@ -1,10 +1,15 @@
-"""The workload's train step as one CUDA graph: the port's counterpart of
-the reference's ``jax.jit`` of its step (``tpudash/models/runner.py``).
+"""Train steps as CUDA graphs: the port's counterpart of the reference's
+``jax.jit`` of each train step (``tpudash/models/{runner,workload,
+pipeline,moe,ring_attention}.py``).
 
 Eager PyTorch issues every kernel and copy of a step from the host, one at
 a time: over a host's GPUs the host's issue time, not the devices, sets
-the pace of the dp×tp step.  :func:`graph_train_step` records one step as
-a CUDA graph and replays it with one launch a step.
+the pace of a multi-device step.  :func:`graph_train_step` records one step
+as a CUDA graph and replays it with one launch a step; :func:`compiled`
+wraps a step so that it captures on its first call on CUDA devices and
+replays on every later one, as a ``jax.jit`` call compiles once.  Every
+``make_*_train_step`` of the port returns its step so wrapped, and the
+runner wraps its one-device step.
 
 One graph spans every device of the step (a mesh's devices):
 
@@ -47,13 +52,6 @@ WARMUP_STEPS = 2
 #: made there (see above), and the exporter's other threads, which serve
 #: HTTP and device traces, must not fail for a capture in progress
 CAPTURE_ERROR_MODE = "thread_local"
-
-
-class StaticBuffers(NamedTuple):
-    """What a graph reads and writes at every replay."""
-
-    tokens: torch.Tensor  # each step's tokens are copied here
-    loss: torch.Tensor  # the 0-d loss the graph writes, on the tokens' device
 
 
 def graph_devices(optimizer: torch.optim.Optimizer, tokens_like: torch.Tensor) -> list:
@@ -111,24 +109,31 @@ def _release_pools(devices: list, pool) -> None:
         torch._C._cuda_releasePool(d, pool)
 
 
-def graph_train_step(step: Callable, params, optimizer: torch.optim.Optimizer,
-                     tokens_like: torch.Tensor):
-    """Capture ``step(params, optimizer, tokens)`` (the runner's one-device
-    or sharded step: it updates the state in place and returns the loss as a
-    0-d tensor) as one CUDA graph over every device of ``optimizer``'s
-    parameters and of ``tokens_like``, whose shape and dtype each step's
-    tokens have.
-
-    Returns ``(replay, buffers)``: ``replay(tokens)`` copies ``tokens`` into
-    ``buffers.tokens``, launches the graph and returns ``buffers.loss``,
-    unread.  The state the step starts from is the one given: the warm-up
-    steps are undone before the capture, and the capture itself runs
-    nothing.  Raises on a device that is not a GPU, before running anything:
-    the CPU runs the step eagerly."""
-    devices = graph_devices(optimizer, tokens_like)
+def _cuda_only(devices: list) -> None:
     if any(d.type != "cuda" for d in devices):
         raise ValueError(f"a CUDA graph needs CUDA devices, not {[str(d) for d in devices]}; "
                          "run the step eagerly there")
+
+
+def graph_train_step(step: Callable, params, optimizer: torch.optim.Optimizer,
+                     tokens_like: torch.Tensor):
+    """Capture ``step(params, optimizer, tokens)`` as one CUDA graph over
+    every device of ``optimizer``'s parameters and of ``tokens_like``, whose
+    shape and dtype each step's tokens have.  ``step`` updates the state in
+    place and returns the loss as a 0-d tensor: the one-device
+    ``workload.train_step``, or the uncompiled step (``.eager``) that
+    ``workload.make_sharded_train_step``, ``pipeline.make_pipeline_train_step``,
+    ``pipeline.make_pipeline3d_train_step``, ``moe.make_moe_train_step`` or
+    ``ring_attention.make_ring_train_step`` builds.
+
+    Returns ``replay``: ``replay(tokens)`` copies ``tokens`` into the
+    graph's static tokens, launches the graph and returns its static 0-d
+    loss, unread, which the next replay overwrites.  The state the step starts
+    from is the one given: the warm-up steps are undone before the capture,
+    and the capture itself runs nothing.  Raises on a device that is not a
+    GPU, before running anything: the CPU runs the step eagerly."""
+    devices = graph_devices(optimizer, tokens_like)
+    _cuda_only(devices)
     home, others = devices[0], devices[1:]
     tokens = torch.zeros_like(tokens_like)
     streams = {d: torch.cuda.Stream(d) for d in devices}
@@ -171,4 +176,77 @@ def graph_train_step(step: Callable, params, optimizer: torch.optim.Optimizer,
         graph.replay()
         return loss
 
-    return replay, StaticBuffers(tokens, loss)
+    return replay
+
+
+def _tree_tensors(tree) -> list:
+    """The tensors of a tree of dicts, tuples and lists, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree if isinstance(tree, (tuple, list)) else ()
+    return [t for x in items for t in _tree_tensors(x)]
+
+
+def _held(params, optimizer: torch.optim.Optimizer) -> tuple:
+    """The tensors a graph of ``step(params, optimizer, ·)`` reads and
+    updates in place: the tree's, then each parameter and its optimizer
+    state's."""
+    out = _tree_tensors(params)
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            out.append(p)
+            out += [v for v in optimizer.state.get(p, {}).values() if isinstance(v, torch.Tensor)]
+    return tuple(out)
+
+
+class _Graph(NamedTuple):
+    replay: Callable
+    held: tuple  # the tensors it was captured over
+
+
+def compiled(step: Callable) -> Callable:
+    """``step(params, optimizer, tokens) -> loss`` compiled, as the
+    reference's ``make_*_train_step`` return a ``jax.jit`` of their step:
+    returns ``run(params, optimizer, tokens)``, with ``step``'s signature,
+    and ``run.eager`` is ``step``.
+
+    - When every device of the optimizer's parameters and of the tokens is
+      a CPU, ``run`` calls ``step``.  A state over CPU and CUDA devices
+      raises ValueError before anything runs.
+    - On CUDA devices, the first call for an optimizer and a shape, dtype
+      and device of the tokens captures ``step`` (:func:`graph_train_step`,
+      whose warm-up is undone) and replays the graph once: it applies
+      exactly one step, as the first call of a ``jax.jit`` does.  Later
+      calls copy the tokens in and replay.  A failed capture raises;
+      nothing runs the step eagerly in its place.
+    - Each call returns a loss of its own: a copy of the graph's static
+      loss, which the next replay overwrites.
+    - An optimizer's graphs, and their memory pools, live as long as the
+      optimizer: they are held in a ``WeakKeyDictionary`` keyed by it, and
+      nothing in them refers to it.
+    - A graph updates the tensors it was captured over.  When the tree's,
+      the parameters' or the optimizer state's tensors are no longer those
+      (``load_state_dict`` replaces the state's), the call drops the graph
+      and captures again from the state as it is.
+    """
+    graphs: "weakref.WeakKeyDictionary[torch.optim.Optimizer, dict]" = weakref.WeakKeyDictionary()
+
+    def run(params, optimizer: torch.optim.Optimizer, tokens: torch.Tensor) -> torch.Tensor:
+        devices = graph_devices(optimizer, tokens)
+        if all(d.type == "cpu" for d in devices):
+            return step(params, optimizer, tokens)
+        _cuda_only(devices)
+        mine = graphs.setdefault(optimizer, {})
+        key = (tokens.shape, tokens.dtype, tokens.device)
+        held, graph = _held(params, optimizer), mine.get(key)
+        if graph is not None and len(graph.held) == len(held) and all(
+                a is b for a, b in zip(graph.held, held)):
+            return graph.replay(tokens).clone()
+        del graph
+        mine.pop(key, None)  # a stale graph and its pool go before the new capture
+        replay = graph_train_step(step, params, optimizer, tokens)
+        mine[key] = _Graph(replay, _held(params, optimizer))
+        return replay(tokens).clone()
+
+    run.eager = step
+    return run

@@ -25,6 +25,7 @@ import functools
 import torch
 
 from tpudash_torch.models import workload as w
+from tpudash_torch.models.graphed import compiled
 from tpudash_torch.parallel.mesh import Mesh
 
 _NEG_BIG = -1e30
@@ -177,7 +178,9 @@ def make_ring_train_step(mesh: Mesh, cfg: w.WorkloadConfig):
     ``shard_inputs(params, optimizer)`` gives ``(replicas, optimizer)``, a
     tuple of one parameter tree per mesh device and an AdamW over all of
     them; ``step(replicas, optimizer, tokens)`` updates them in place and
-    returns the loss before the update on the mesh's first device.
+    returns the loss before the update on the mesh's first device.  The
+    step is ``graphed.compiled``, as the reference jits it: on GPUs one
+    CUDA graph over the mesh, each K/V hop a node of it; on the CPU eager.
     """
     dp, sp = _ring_axes(mesh, "dp", "sp")
     for what, size, axis, n in (("batch", cfg.batch, "dp", dp), ("seq", cfg.seq, "sp", sp)):
@@ -214,4 +217,4 @@ def make_ring_train_step(mesh: Mesh, cfg: w.WorkloadConfig):
         optimizer.step()
         return loss.detach()
 
-    return step, shard_inputs
+    return compiled(step), shard_inputs

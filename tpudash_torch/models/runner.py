@@ -7,10 +7,10 @@ step time), and current loss.  The probe source measures what the card
 
 It trains on every local GPU: over several devices with the dp×tp sharded
 step on ``build_mesh(mesh_axes_for(n), devices)``, on one device with the
-plain step.  On GPUs the step is captured once as one CUDA graph over every
-device and replayed with one launch a step (``models/graphed.py``), as the
-reference dispatches one ``jax.jit`` program a step; on the CPU, which only
-tests ask for, it runs eagerly.
+plain step.  Both are ``graphed.compiled``: on GPUs the step is captured
+once, at the first call, as one CUDA graph over every device and replayed
+with one launch a step, as the reference dispatches one ``jax.jit``
+program a step; on the CPU, which only tests ask for, it runs eagerly.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import time
 
 import torch
 
-from tpudash_torch.models.graphed import graph_train_step
+from tpudash_torch.models.graphed import compiled
 from tpudash_torch.models.workload import (
     WorkloadConfig,
     flops_per_step,
@@ -138,21 +138,12 @@ class WorkloadRunner:
                 def full_state():  # a checkpoint holds the gathered state
                     return gather_train_state(params, optimizer, plan)
             else:
-                def step(p, o, t):
-                    return train_step(p, o, t, cfg)
+                step = compiled(lambda p, o, t: train_step(p, o, t, cfg))
 
                 def full_state():
                     return params, optimizer
 
             shape = (cfg.batch, cfg.seq)
-            if dev.type == "cuda":  # a failed capture surfaces as self.error
-                run, _ = graph_train_step(
-                    step, params, optimizer, torch.zeros(shape, dtype=torch.long, device=dev)
-                )
-            else:
-                def run(tokens):
-                    return step(params, optimizer, tokens)
-
             data_gen = torch.Generator(device=dev).manual_seed(1)
             k = self.steps_per_sync
             last_saved = self.steps
@@ -161,7 +152,9 @@ class WorkloadRunner:
                 loss = None
                 for _ in range(k):  # dispatch k steps, sync once
                     tokens = torch.randint(0, cfg.vocab, shape, generator=data_gen, device=dev)
-                    loss = run(tokens)
+                    # the first call captures the graph on GPUs: a failed
+                    # capture surfaces as self.error
+                    loss = step(params, optimizer, tokens)
                 loss_val = loss.item()  # readback = true batch boundary
                 dt = (time.perf_counter() - t0) / k
                 with self._lock:

@@ -22,9 +22,11 @@ to about one layer's.
 
 The dp×tp sharded step (``make_sharded_train_step``) runs over a
 ``parallel.mesh.Mesh`` from one process, as the reference's ``jax.jit``
-over a local mesh does.  A sharded leaf is a tuple over the dp rows of a
-tuple over the tp columns of per-device tensors (:class:`ShardPlan`);
-collectives are copies between devices that autograd sees.
+over a local mesh does, and returns it compiled as that ``jax.jit`` is:
+on GPUs one CUDA graph over the mesh (``models/graphed.py``).  A sharded
+leaf is a tuple over the dp rows of a tuple over the tp columns of
+per-device tensors (:class:`ShardPlan`); collectives are copies between
+devices that autograd sees.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from tpudash_torch.models.graphed import compiled
 from tpudash_torch.parallel.mesh import Mesh
 
 
@@ -592,7 +595,9 @@ def plan_train_step(plan, loss_fn):
     be None) into ``(sharded, sharded_optimizer)``;
     ``step(sharded, sharded_optimizer, tokens)`` updates them in place and
     returns the loss before the update, a 0-d tensor, unread.  The tokens
-    may lie on any device: the loss places each part of the batch.
+    may lie on any device: the loss places each part of the batch.  The
+    step is ``graphed.compiled``: on GPUs one CUDA graph over every device
+    of the plan, captured at its first call; on the CPU eager.
     """
 
     def shard_inputs(params: dict, optimizer: "torch.optim.Optimizer | None"):
@@ -614,7 +619,7 @@ def plan_train_step(plan, loss_fn):
         optimizer.step()
         return loss.detach()
 
-    return step, shard_inputs
+    return compiled(step), shard_inputs
 
 
 def make_sharded_train_step(mesh: Mesh, cfg: WorkloadConfig):
