@@ -10,6 +10,19 @@ From the root of a checkout, on a host with one H100:
    source, started together) and prints the build time;
 3. holds each kernel against its plain PyTorch version on the card, the
    copy kernel exactly at the edges of its launch plan;
+3a. loads the kernels as the exporter image does, with no compiler: a fresh
+   process with nvcc off PATH and CUDA_HOME=/nonexistent loads phase 2's
+   libraries, launches both and matches their plain versions; the same
+   process over a copy with an empty build directory fails "nvcc not found";
+3b. runs the image's build stage (deploy/torch/Dockerfile) with no GPU
+   visible: a venv of only the distributions deploy/torch/requirements.lock
+   names, pip install --no-deps of the stage's COPY sources, then the
+   Dockerfile's own build script under python -P; a process with no compiler
+   then loads and checks what it built;
+3c. runs the DaemonSet's container (deploy/torch/exporter-daemonset.yaml):
+   its command and env in that venv on a free port, /healthz 200, /metrics
+   200 with every tpu_* series for every GPU, exit 0 within 10 s of SIGTERM
+   with nothing of its process group left and the port free;
 4. drives the exporter's main path: TorchProbeSource at the exporter's
    default sizes, then the exporter app serving /metrics and /healthz;
 5. drives the probe bench's path: the matmul, read and copy probes at the
@@ -71,10 +84,14 @@ import asyncio
 import contextlib
 import json
 import math
+import os
 import re
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1451,6 +1468,329 @@ def anomaly_phase(devices: list, card: str) -> None:
           f"(numpy on the host: {median_us(lambda: numpy_z(x, loc, scale)):.1f} us)")
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def binds(port: int) -> bool:
+    """Whether a server could bind ``port`` now: with SO_REUSEADDR, as
+    servers set it, which passes over TIME_WAIT but not over a listener."""
+    with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            return False
+    return True
+
+
+# -- the exporter as deployed: deploy/torch/{Dockerfile,exporter-daemonset.yaml} --
+
+#: a child that loads the kernels with build_kernels(), launches each once on
+#: cuda:0 at the main path's shapes and holds it to its plain version with
+#: phase 3's tolerances; argv: rows cols block_rows.  Its first line names the
+#: module it imported, before anything can fail.
+KERNEL_CHILD = r"""
+import json, sys
+import torch
+from tpudash_torch.ops import kernels
+print(json.dumps({"module": kernels.__file__}), flush=True)
+try:
+    kernels._nvcc()
+    nvcc = "reachable"
+except RuntimeError:
+    nvcc = None
+took = kernels.build_kernels()
+rows, cols, br = map(int, sys.argv[1:4])
+dev = torch.device("cuda", 0)
+g = torch.Generator(device=dev).manual_seed(0)
+x = torch.randn((rows, cols), generator=g, device=dev)
+prev = torch.randn((1, cols), generator=g, device=dev)
+got = kernels.hbm_read_pass(x, prev, br)
+err = (got - kernels.hbm_read_pass_ref(x, prev)).abs()
+depth = br + -(-rows // br) + 1
+tol = 2 * depth * 2.0**-24 * (prev.abs() + x.abs().sum(0, keepdim=True))
+copied = kernels.hbm_copy(x, torch.empty_like(x))
+torch.cuda.synchronize()
+print(json.dumps({
+    "nvcc": nvcc, "load_s": took, "libraries": [str(k.library_path) for k in kernels.KERNELS],
+    "launches": kernels.launch_counts(), "read_err": err.max().item(),
+    "read_ok": bool(torch.isfinite(got).all() and (err <= tol).all()),
+    "copy_exact": torch.equal(copied, kernels.copy_ref(x)),
+}))
+"""
+
+
+def no_compiler_env(**extra: str) -> dict:
+    """This environment with every PATH directory that holds nvcc dropped
+    and CUDA_HOME pointed nowhere: kernels._nvcc() looks in PATH, then in
+    $CUDA_HOME/bin, and finds nothing.  PYTHONPATH goes too, so a child
+    imports the tree it is run over."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PATH"] = os.pathsep.join(
+        d for d in env.get("PATH", "").split(os.pathsep) if d and not (Path(d) / "nvcc").exists())
+    env["CUDA_HOME"] = "/nonexistent"
+    env.update(extra)
+    return env
+
+
+def run_kernel_child(python: list, cwd: Path, shape: tuple) -> tuple[int, list, str]:
+    """KERNEL_CHILD under ``python`` (argv prefix) from ``cwd`` with no
+    compiler reachable: (exit code, its JSON lines, its stderr)."""
+    r = subprocess.run([*python, "-c", KERNEL_CHILD, *map(str, shape)], cwd=cwd,
+                       env=no_compiler_env(), capture_output=True, text=True, timeout=300)
+    return r.returncode, [json.loads(ln) for ln in r.stdout.splitlines() if ln.startswith("{")], r.stderr
+
+
+def inside(path: str, tree: Path) -> bool:
+    return Path(path).resolve().is_relative_to(tree.resolve())
+
+
+def check_kernel_child(what: str, rc: int, out: list, err: str, tree: Path) -> dict:
+    check(rc == 0 and len(out) == 2, f"{what}: exit {rc}\n{err[-3000:]}")
+    got = {**out[0], **out[1]}
+    check(inside(got["module"], tree), f"{what}: imported {got['module']}, not {tree}")
+    check(got["nvcc"] is None, f"{what}: nvcc was reachable")
+    check(all(inside(lib, tree) for lib in got["libraries"]),
+          f"{what}: libraries {got['libraries']} outside {tree}")
+    check(got["launches"] == {"hbm_read": 1, "hbm_copy": 1}, f"{what}: launches {got['launches']}")
+    check(got["read_ok"], f"{what}: hbm_read max err {got['read_err']:.3e} above its tolerance")
+    check(got["copy_exact"], f"{what}: hbm_copy not exact")
+    return got
+
+
+def copy_tree(dst: Path) -> Path:
+    """tpudash_torch/ under ``dst`` without its build directory."""
+    shutil.copytree(ROOT / "tpudash_torch", dst / "tpudash_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    return dst
+
+
+def prebuilt_phase(card: str, shape: tuple, tmp: Path) -> None:
+    """3a: the runtime image's premise.  A fresh process that cannot reach
+    nvcc loads phase 2's libraries, launches both kernels and matches their
+    plain versions; the same process over a copy of the package with an
+    empty build directory fails for want of nvcc."""
+    t0 = time.perf_counter()
+    got = check_kernel_child("prebuilt libraries", *run_kernel_child([sys.executable], ROOT, shape),
+                             ROOT / "tpudash_torch")
+    rc, out, err = run_kernel_child([sys.executable], copy_tree(tmp / "empty_build"), shape)
+    check(rc != 0 and "nvcc not found" in err,
+          f"negative control: exit {rc} without 'nvcc not found':\n{err[-2000:]}")
+    check(bool(out) and inside(out[0]["module"], tmp / "empty_build"),
+          f"negative control imported {out[:1]}")
+    took = time.perf_counter() - t0
+    print(f"3a prebuilt kernels, no compiler [{card}]: a fresh process with nvcc off PATH and "
+          f"CUDA_HOME=/nonexistent loaded {len(got['libraries'])} libraries in {got['load_s']:.3f} s, "
+          f"launched {got['launches']} on cuda:0 at {shape[0]}x{shape[1]}: read max_abs_err "
+          f"{got['read_err']:.3e} within tolerance, copy exact; negative control over an empty "
+          f"build directory: exit {rc}, 'nvcc not found'; phase {took:.1f} s")
+
+
+def dockerfile_build_script() -> tuple[str, list]:
+    """The Python the image's build stage runs after ``pip install .``
+    (deploy/torch/Dockerfile's ``python -P - <<'EOF'`` block), and the
+    sources of the build stage's COPY lines."""
+    text = (ROOT / "deploy" / "torch" / "Dockerfile").read_text()
+    build = text.split("\nFROM ")[1]
+    script = build.split("python -P - <<'EOF'\n", 1)[1].split("\nEOF\n", 1)[0]
+    sources = [src for line in build.splitlines() if line.startswith("COPY ")
+               for src in line.split()[1:-1]]
+    return script, sources
+
+
+def readelf_needed(lib: str) -> "list[str] | None":
+    try:
+        out = subprocess.run(["readelf", "-d", lib], capture_output=True, text=True,
+                             timeout=60, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return re.findall(r"\(NEEDED\)\s+Shared library: \[([^\]]+)\]", out)
+
+
+def lock_pins(path: Path) -> dict:
+    pins = {}
+    for line in path.read_text().splitlines():
+        line = line.split("#", 1)[0].strip()
+        if line:
+            name, version = line.split("==")
+            pins[name] = version
+    return pins
+
+
+def link_distributions(purelib: Path, names: list) -> dict:
+    """Symlink every file of each named distribution, as this host installed
+    it, into ``purelib``: the venv then holds those distributions and
+    nothing else of the host's.  Returns ``{name: version}`` as installed."""
+    from importlib import metadata
+
+    versions = {}
+    for name in names:
+        dist = metadata.distribution(name)
+        check(dist.files is not None, f"{name}: no RECORD to link it from")
+        versions[name] = dist.version
+        for f in dist.files:
+            if f.parts[0] == "..":  # scripts and data outside site-packages
+                continue
+            dst = purelib / f
+            if not dst.exists():
+                dst.parent.mkdir(parents=True, exist_ok=True)
+                dst.symlink_to(Path(dist.locate_file(f)).resolve())
+    return versions
+
+
+def image_build_phase(card: str, shape: tuple, tmp: Path) -> Path:
+    """3b: the image's build stage on this host, with no GPU visible.  A
+    venv gets the distributions deploy/torch/requirements.lock names, linked
+    from this host's install (the lock was generated on such a host), and
+    pip; the build stage's COPY sources go to ``src`` and install into the
+    venv with ``--no-deps --no-build-isolation``; the Dockerfile's own build
+    script runs there under ``python -P`` with CUDA_VISIBLE_DEVICES="".  Then
+    a process with no compiler loads what it built, as the runtime stage
+    does.  Returns the venv."""
+    t0 = time.perf_counter()
+    script, sources = dockerfile_build_script()
+    pins = lock_pins(ROOT / "deploy" / "torch" / "requirements.lock")
+    src, venv = tmp / "src", tmp / "venv"
+    src.mkdir()
+    for name in sources:
+        if (ROOT / name).is_dir():
+            shutil.copytree(ROOT / name, src / name, ignore=shutil.ignore_patterns("build", "__pycache__"))
+        else:
+            shutil.copy(ROOT / name, src)
+    subprocess.run([sys.executable, "-m", "venv", "--without-pip", str(venv)], check=True, timeout=120)
+    py = venv / "bin" / "python"
+    purelib = Path(subprocess.run([py, "-c", "import sysconfig; print(sysconfig.get_path('purelib'))"],
+                                  capture_output=True, text=True, check=True).stdout.strip())
+    installed = link_distributions(purelib, [*pins, "pip"])
+    differ = {n: (installed[n], v) for n, v in pins.items() if installed[n] != v}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([py, "-m", "pip", "install", "-q", "--no-deps", "--no-build-isolation", "--no-index",
+                    "."], cwd=src, env=env, check=True, timeout=300)
+    t_build = time.perf_counter()
+    r = subprocess.run([py, "-P", "-"], input=script, cwd=src, env={**env, "CUDA_VISIBLE_DEVICES": ""},
+                       capture_output=True, text=True, timeout=600)
+    build_s = time.perf_counter() - t_build
+    check(r.returncode == 0,
+          f"the Dockerfile's build script: exit {r.returncode}\n{r.stdout}{r.stderr[-3000:]}")
+    libs = sorted((purelib / "tpudash_torch" / "ops" / "build").glob("*.so"))
+    check(len(libs) == 2, f"the build script left {[lib.name for lib in libs]}")
+    needed = {lib.name: readelf_needed(str(lib)) for lib in libs}
+    check(not any("libcuda.so" in n for v in needed.values() if v for n in v),
+          f"a kernel library needs the driver at load time: {needed}")
+    got = check_kernel_child("the image's libraries", *run_kernel_child([str(py), "-P"], tmp, shape),
+                             purelib / "tpudash_torch")
+    took = time.perf_counter() - t0
+    print(f"3b image build stage, no GPU [{card}]: a venv of the lock's {len(pins)} distributions "
+          f"and pip (this host's install; versions that differ from the lock: {differ or 'none'}); "
+          f"pip install --no-deps of {' '.join(sources)}, then deploy/torch/Dockerfile's build "
+          f"script under python -P with CUDA_VISIBLE_DEVICES='' in {build_s:.1f} s: exit 0, "
+          f"{[lib.name for lib in libs]} in site-packages; NEEDED "
+          f"{needed if all(needed.values()) else 'not checked (no readelf)'}; a process with no "
+          f"compiler loaded them and matched the plain versions (read max_abs_err "
+          f"{got['read_err']:.3e}); phase {took:.1f} s")
+    return venv
+
+
+#: seconds the manifest's exporter may take to exit after SIGTERM: well
+#: inside Kubernetes' default grace period of 30 s before its SIGKILL
+SIGTERM_EXIT_S = 10.0
+
+
+def manifest_phase(card: str, venv: Path, tmp: Path) -> None:
+    """3c: the DaemonSet's container as Kubernetes starts it: its command
+    and env from deploy/torch/exporter-daemonset.yaml, resolved in the venv
+    of 3b (the lock's distributions only) with no compiler reachable, on a
+    free port.  /healthz 200, then /metrics 200 with every tpu_* series for
+    every GPU; SIGTERM ends it within SIGTERM_EXIT_S with exit 0, no process
+    of its group left, the port free."""
+    import signal
+    import urllib.error
+    import urllib.request
+
+    import torch
+    import yaml
+
+    from tpudash_torch.schema import (HBM_BANDWIDTH, HBM_TOTAL, HBM_USED, ICI_LINK_SERIES, ICI_RX,
+                                      ICI_TX, TENSORCORE_UTIL)
+
+    t0 = time.perf_counter()
+    manifest = yaml.safe_load((ROOT / "deploy" / "torch" / "exporter-daemonset.yaml").read_text())
+    (container,) = manifest["spec"]["template"]["spec"]["containers"]
+    command = container["command"]
+    port = free_port()
+    manifest_env = {e["name"]: e["value"] for e in container["env"]}
+    env = no_compiler_env(**{**manifest_env, "TPUDASH_EXPORTER_PORT": str(port)})
+    env["PATH"] = os.pathsep.join([str(venv / "bin"), env["PATH"]])
+    exe = shutil.which(command[0], path=env["PATH"])
+    check(exe is not None and Path(exe).parent == venv / "bin", f"{command[0]} resolves to {exe}")
+    n_dev = torch.cuda.device_count()
+    series = [TENSORCORE_UTIL, HBM_USED, HBM_TOTAL, HBM_BANDWIDTH]
+    if n_dev > 1:
+        series += [ICI_TX, ICI_RX, ICI_LINK_SERIES["xp"], ICI_LINK_SERIES["xn"]]
+    log = tmp / "exporter.log"
+    url = f"http://127.0.0.1:{port}"
+
+    def get(path: str, timeout: float) -> tuple[int, str]:
+        try:
+            with urllib.request.urlopen(url + path, timeout=timeout) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    with open(log, "w") as out:
+        proc = subprocess.Popen(command, env=env, cwd=tmp, stdout=out, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            check(proc.poll() is None, f"the exporter exited {proc.returncode}:\n"
+                  f"{log.read_text()[-3000:]}")
+            try:
+                status, body = get("/healthz", 5)
+                break
+            except OSError:
+                check(time.monotonic() < deadline, "no /healthz within 120 s")
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        check(status == 200 and json.loads(body)["ok"], f"/healthz {status} {body}")
+        status, text = get("/metrics", 300)  # waits for the warm-up's probe batch
+        metrics_s = time.perf_counter() - t0
+        check(status == 200, f"/metrics {status}: {text[:500]}")
+        for name in series:
+            ids = sorted(int(m) for m in re.findall(rf'^{name}{{[^}}]*chip_id="(\d+)"', text, re.M))
+            check(ids == list(range(n_dev)), f"/metrics: {name} for chip_ids {ids}, not 0..{n_dev - 1}")
+        exported = sorted({ln.split("{", 1)[0] for ln in text.splitlines() if ln.startswith("tpu_")})
+        check(set(exported) == set(series), f"/metrics exports {exported}")
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=SIGTERM_EXIT_S)
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"the exporter outlived SIGTERM by {SIGTERM_EXIT_S} s") from None
+        exit_s = time.perf_counter() - t_term
+        check(rc == 0, f"exit {rc} after SIGTERM:\n{log.read_text()[-3000:]}")
+        try:
+            os.killpg(proc.pid, 0)
+        except ProcessLookupError:
+            pass
+        else:
+            raise SmokeFailure("a process of the exporter's group outlived it")
+        check(binds(port), f"port {port} still bound after the exporter exited")
+    finally:
+        with contextlib.suppress(ProcessLookupError):  # the group is gone when all went well
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    print(f"3c the DaemonSet's exporter [{card}]: {command} with "
+          f"{manifest_env} from the manifest, TPUDASH_EXPORTER_PORT={port}, via {exe}, no "
+          f"compiler reachable: /healthz 200 after {up_s:.1f} s, /metrics 200 after {metrics_s:.1f} s "
+          f"with {len(series)} tpu_* series for each of {n_dev} GPU(s); SIGTERM -> exit 0 in "
+          f"{exit_s:.2f} s (bound {SIGTERM_EXIT_S:.0f} s), no process of its group left, port free; "
+          f"phase {time.perf_counter() - t0:.1f} s")
+
+
 def demo_phase(card: str) -> None:
     """``python -m tpudash_torch.demo``'s path: start_demo at the exporter's
     defaults on free ports, the dashboard child's first frame, and nothing
@@ -1459,7 +1799,6 @@ def demo_phase(card: str) -> None:
     only the exporter half runs."""
     import importlib.util
     import os
-    import socket
 
     import aiohttp
     import torch
@@ -1468,19 +1807,6 @@ def demo_phase(card: str) -> None:
     from tpudash_torch.config import Config
     from tpudash_torch.exporter.server import make_app
     from tpudash_torch.schema import HBM_BANDWIDTH, HBM_TOTAL, HBM_USED, TENSORCORE_UTIL
-
-    def free_port() -> int:
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
-
-    def binds(port: int) -> bool:
-        with socket.socket() as s:
-            try:
-                s.bind(("127.0.0.1", port))
-            except OSError:
-                return False
-        return True
 
     port, exporter_port = free_port(), free_port()
     cfg = Config(host="127.0.0.1", port=port, exporter_port=exporter_port)
@@ -1826,6 +2152,13 @@ def main() -> int:
     print(f"matmul chain vs float64 on the host: {got_mm:.4f} vs {chain.sum().item():.4f}, "
           f"tol {tol_mm:.3f}")
     del xm, wm, chain
+
+    # -- 3a-3c. the exporter as deployed: prebuilt kernels with no compiler, the
+    # image's build stage with no GPU, the DaemonSet's command --------------------
+    with tempfile.TemporaryDirectory(prefix="tpudash-deploy-") as tmp:
+        prebuilt_phase(card, (rows, cols, block_rows), Path(tmp))
+        venv = image_build_phase(card, (rows, cols, block_rows), Path(tmp))
+        manifest_phase(card, venv, Path(tmp))
 
     # -- 4. the exporter's main path --------------------------------------------
     kernels.reset_launch_counts()

@@ -2,9 +2,12 @@
 held against the reference's numpy and jax scorers on the CPU, and wired
 into the reference's AnomalyEngine."""
 
+import pytest
+
+pytest.importorskip("torch")  # the port's own CI job installs it
+
 import numpy as np
 import pandas as pd
-import pytest
 import torch
 
 from tpudash import schema

@@ -2,13 +2,16 @@
 reference's (tests/test_demo.py): the same scrape wiring, a dashboard child
 showing the port exporter's chips, and nothing left running on failure."""
 
+import pytest
+
+pytest.importorskip("torch")  # the port's own CI job installs it
+
 import asyncio
 import json
 import os
 import socket
 
 import aiohttp
-import pytest
 import torch
 
 from tpudash import config as jconfig

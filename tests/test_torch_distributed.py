@@ -4,6 +4,10 @@ mirroring tests/test_distributed.py: single-process behaviour, with
 rendezvous that fails within its bounded timeout (a client with no server
 on a localhost port)."""
 
+import pytest
+
+pytest.importorskip("torch")  # the port's own CI job installs it
+
 import socket
 import subprocess
 import sys
@@ -11,7 +15,6 @@ import time
 from datetime import timedelta
 from pathlib import Path
 
-import pytest
 import torch
 import torch.distributed as dist
 

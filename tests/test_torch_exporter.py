@@ -1,8 +1,11 @@
 """The port's exporter held against the reference's on the CPU."""
 
+import pytest
+
+pytest.importorskip("torch")  # the port's own CI job installs it
+
 import asyncio
 
-import pytest
 import torch
 from aiohttp.test_utils import TestClient, TestServer
 

@@ -28,6 +28,10 @@ tests:
   exactly, a checkpoint of the non-capturable optimizer included.
 """
 
+import pytest
+
+pytest.importorskip("torch")  # the port's own CI job installs it
+
 import copy
 import gc
 import math
@@ -39,7 +43,6 @@ import weakref
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from test_torch_probes import _forbidden_imports, _port_files

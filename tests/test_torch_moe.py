@@ -19,12 +19,15 @@ module-scoped fixture.  Tolerances:
 - replicas: bitwise equal; shards and moments carried across: exact.
 """
 
+import pytest
+
+pytest.importorskip("torch")  # the port's own CI job installs it
+
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 

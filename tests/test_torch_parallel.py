@@ -3,9 +3,12 @@ reference's (tpudash.parallel) on the CPU: the mesh factorisation, the
 probes' detail and rate formulas, the data each collective moves, and the
 ICI series TorchProbeSource emits over several CPU "devices"."""
 
+import pytest
+
+pytest.importorskip("torch")  # the port's own CI job installs it
+
 import jax
 import numpy as np
-import pytest
 import torch
 
 from tpudash import config as jconfig

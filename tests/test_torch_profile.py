@@ -3,6 +3,10 @@ held to the reference's device mode (tests/test_server.py::
 test_profile_device_trace_mode and the device cases of
 test_profile_clamps_frames_and_rejects_garbage) on the CPU."""
 
+import pytest
+
+pytest.importorskip("torch")  # the port's own CI job installs it
+
 import asyncio
 import json
 import os
@@ -11,7 +15,6 @@ import tempfile
 import threading
 import time
 
-import pytest
 import torch
 from aiohttp.test_utils import TestClient, TestServer
 

@@ -18,12 +18,15 @@ Tolerances, as in tests/test_torch_workload.py:
 - dp replicas: bitwise equal; shards and checkpoints: exact.
 """
 
+import pytest
+
+pytest.importorskip("torch")  # the port's own CI job installs it
+
 import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from tpudash.config import Config as JConfig

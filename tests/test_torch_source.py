@@ -1,9 +1,12 @@
 """TorchProbeSource held against the reference ProbeSource on the CPU, and
 the port's schema, registry and config against the reference's."""
 
+import pytest
+
+pytest.importorskip("torch")  # the port's own CI job installs it
+
 import threading
 
-import pytest
 import torch
 
 from tpudash import config as jconfig
