@@ -546,7 +546,7 @@ def gradient_limit_phase(dev, card: str) -> None:
     parts = {name: [t.grad for t in rows[0]] for name, rows in W.named_leaves(sharded)}
     tp8 = grad_rel({n: plan.join(n, g) for n, g in parts.items()}, plain)
     zeroed = grad_rel({n: plan.join(n, g[:-1] + [torch.zeros_like(g[-1])])
-                       for n, g in parts.items() if len(g) > 1}, plain)
+                       for n, g in parts.items() if W.TP_DIMS[n] is not None}, plain)
     del sharded, parts
     plan, sharded = sharded_grads({"dp": 2, "tp": 2}, False)
     no_sum = grad_rel({n: plan.join(n, [t.grad for t in rows[0]])
@@ -655,19 +655,17 @@ def sharded_phase(devices: list, card: str, gen, label: str) -> dict:
     batch = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=gen_t, device=dev)
     step, shard_inputs = W.make_sharded_train_step(mesh, cfg)
     sharded, sopt = shard_inputs(params, opt)
-    for name, rows in W.named_leaves(sharded):
-        for r, row in enumerate(rows):
-            for c, t in enumerate(row):
-                check(t.device == plan.device(r, c),
-                      f"{name}[{r}][{c}] on {t.device}, the plan names {plan.device(r, c)}")
+    _check_placement(sharded, plan)
     p0 = W._unflatten((name, t.detach().clone()) for name, t in W.named_leaves(params))
     loss_sh = step(sharded, sopt, batch).item()
     loss_un = W.train_step(params, opt, batch, cfg).item()
     rel = abs(loss_sh - loss_un) / loss_un
     check(math.isfinite(loss_sh) and rel <= 1e-4,
           f"sharded loss {loss_sh} vs unsharded {loss_un} (rel {rel:.3e} above 1e-4)")
+    groups = check_tp_replicas(sharded, plan, "sharded step")
     print(f"  loss at init: sharded {loss_sh:.6f}, unsharded {loss_un:.6f} (rel {rel:.3e}, "
-          f"rtol 1e-4); every shard on the device the plan names")
+          f"rtol 1e-4); every shard on the device the plan names, the norms on every device of "
+          f"their row; after the step {groups} groups of tp replicas bitwise equal, gradients too")
     grads = W._unflatten((name, plan.join(name, [t.grad for t in rows[0]]))
                          for name, rows in W.named_leaves(sharded))
     summary = one_step_checks(p0, W.gather_params(sharded, plan), grads, params,
@@ -832,8 +830,9 @@ def step_timings(run, devices: list, steps: int) -> dict:
     peak = {str(d): torch.cuda.max_memory_allocated(d) - base[str(d)] for d in distinct}
     per_device, top, ops, host_ops = profile_steps(run, 2)
     busy = None if per_device is None else {i: ms / wall_ms for i, ms in per_device.items()}
+    copies = {kind: sum(ms for name, ms in top if f"Memcpy {kind}" in name) for kind in ("PtoP", "DtoD")}
     return {"step_ms": wall_ms, "event_ms": start.elapsed_time(end) / steps, "issue_ms": issue_ms,
-            "peak_above_base": peak, "device_ms": per_device, "busy": busy,
+            "peak_above_base": peak, "device_ms": per_device, "busy": busy, "copies_ms": copies,
             "ops": ops, "host_ops": host_ops, "top": top, "steps": steps + 3, "last": last}
 
 
@@ -851,16 +850,53 @@ def print_timings(t: dict, card: str, steps: int) -> None:
                                     for i, b in t["busy"].items())
               + f"; {t['ops']:.0f} device kernels and copies a step, {host} host launch calls a step; top: "
               + "; ".join(f"{name[:48]} {ms:.3f} ms" for name, ms in t["top"][:3]))
+        print(f"  copies a step, summed over the GPUs (profiler): Memcpy PtoP "
+              f"{t['copies_ms']['PtoP']:.3f} ms, Memcpy DtoD {t['copies_ms']['DtoD']:.3f} ms")
 
 
 def _check_placement(sharded: dict, plan) -> None:
+    """Every part on the device its plan names; a layer norm (``blocks.ln1``,
+    ``blocks.ln2``) of a dp×tp or pipeline plan on every device of its dp
+    row, as the reference replicates it over tp: no device of a row is
+    left to a home's norms."""
     from tpudash_torch.models import workload as W
 
+    per_row = len(plan.mesh.devices) // plan.dp
     for name, rows in W.named_leaves(sharded):
         for r, row in enumerate(rows):
             for i, t in enumerate(row):
                 want = plan.part_device(name, r, i)
                 check(t.device == want, f"{name}[{r}][{i}] on {t.device}, the plan names {want}")
+            if name in ("blocks.ln1", "blocks.ln2"):
+                got = [t.device for t in row]
+                mine = list(plan.mesh.devices[r * per_row:(r + 1) * per_row])
+                check(got == mine, f"{name} of row {r} on {got}, not on every device {mine}")
+
+
+def check_tp_replicas(sharded: dict, plan, what: str) -> int:
+    """After a step: every replica of a leaf that a group of a row shares
+    (the parts ``plan.split`` gives as one tensor: a norm over tp, the
+    3D step's embed, ln_f and unembed) has its group's first's bits, and so
+    has its gradient.  Returns the number of groups held."""
+    import torch
+
+    from tpudash_torch.models import workload as W
+
+    groups = 0
+    for name, rows in W.named_leaves(sharded):
+        split = plan.split(name, plan.join(name, [t.detach() for t in rows[0]]))
+        same: dict = {}
+        for i, part in enumerate(split):
+            same.setdefault(id(part), []).append(i)
+        for r, row in enumerate(rows):
+            for idx in (v for v in same.values() if len(v) > 1):
+                first = row[idx[0]]
+                for i in idx[1:]:
+                    check(torch.equal(first, row[i].to(first.device))
+                          and torch.equal(first.grad, row[i].grad.to(first.device)),
+                          f"{what} {name}[{r}][{i}]: a replica or its gradient differs from [{idx[0]}]")
+                groups += 1
+    return groups
 
 
 def pipeline_phase(devices: list, card: str, label: str, axes: dict, microbatches: int) -> dict:
@@ -911,7 +947,9 @@ def pipeline_phase(devices: list, card: str, label: str, axes: dict, microbatche
         for c, part in enumerate(rows[0]):
             check(all(torch.equal(part, row[c].to(part.device)) for row in rows[1:]),
                   f"{what} {name}[*][{c}]: dp replicas differ after a step")
+    groups = check_tp_replicas(sharded, plan, what)
     del params, plain, got
+    print(f"  {groups} groups of tp replicas bitwise equal after the step, gradients too")
     print(f"  every part on the device the plan names; loss at init {loss_pp:.6f} vs unsharded "
           f"{loss_un:.6f} (rel {rel:.3e}, rtol {rtol}); gradient rel. diff "
           + ", ".join(f"{n.split('.')[-1]} {v:.1e}" for n, v in rels.items())
@@ -1994,6 +2032,18 @@ def trace_phase(dev, card: str) -> None:
 
 #: the CUDA runtime and driver calls that put work on a stream: a host op
 LAUNCH_CALLS = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|GraphLaunch|Memcpy\w*Async|Memset\w*Async)")
+
+
+def start_device_tracing() -> None:
+    """One profiler window over one small kernel, which starts the
+    profiler's device tracing in this process.  Call it before any graph is
+    captured: in a process whose first window came after the capture, a
+    graphed step's copies read 0.003 ms a step on an H100 where a process
+    that had profiled first read 6.8 ms for the same step, its kernels
+    alike."""
+    import torch
+
+    profile_steps(lambda: torch.ones(8, device="cuda").add_(1), 1)
 
 
 def profile_steps(fn, n: int):

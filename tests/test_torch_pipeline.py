@@ -34,6 +34,7 @@ from tpudash.parallel import mesh as jmesh
 from tpudash_torch.models import pipeline as TP
 from tpudash_torch.models import workload as T
 from tpudash_torch.parallel.mesh import Mesh, build_mesh
+from torch_replicas import all_equal, record_block_replicas
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU8 = [torch.device("cpu")] * 8
@@ -183,30 +184,56 @@ def test_pipeline3d_loss_matches_reference_and_the_unsharded_loss(ref):
 
 def test_3d_part_shapes_are_the_reference_stage_specs(ref):
     """Each 3D block part has the shard shape of the reference's
-    ``_stage_param_specs_3d``; the leaves it replicates are whole."""
+    ``_stage_param_specs_3d``; the leaves it replicates are whole, one on
+    each tp device of the stage that uses them."""
     plan = TP.pipeline_plan(_mesh(2, 2, 2), TCFG)
     sharded = T.shard_params(TP.convert_params_3d(_params(ref)), plan)
     want = ref["shard_shapes_3d"]
     for name, rows in T.named_leaves(sharded):
         assert len(rows) == 2, name
         assert {tuple(p.shape) for row in rows for p in row} == {tuple(want[name])}, name
-        split = name.startswith("blocks.") and TP.TP_DIMS_3D[name[len("blocks."):]] is not None
-        n_parts = 1 if not name.startswith("blocks.") else 2 * (2 if split else 1)
+        n_parts = 2 if not name.startswith("blocks.") else 2 * 2  # (stage,) tp column
         assert len(rows[0]) == n_parts, name
+
+
+def test_every_3d_tp_replica_and_its_gradient_is_bitwise_equal(monkeypatch):
+    """dp 2 × pp 2 × tp 2 after one step: each stage's tp columns hold the
+    activations (captured after every layer, with their gradients) and the
+    stage's norms, embed on stage 0 and ln_f and unembed on the last, and
+    every replica, its gradient included, has the bits of its column
+    partner's."""
+    outs, grads = record_block_replicas(monkeypatch, T)
+    M = 2
+    step, shard_inputs = TP.make_pipeline3d_train_step(_mesh(2, 2, 2), TCFG, M)
+    params = T.init_params(TCFG, torch.Generator().manual_seed(0))
+    sharded, opt = shard_inputs(TP.convert_params_3d(params), None)
+    step(sharded, opt, torch.from_numpy(_tokens()))
+    # rows × microbatches × layers, in the forward and in the recompute
+    assert len(outs) == 2 * 2 * M * TCFG.n_layers and len(grads) == 2 * M * TCFG.n_layers
+    assert all(len(ys) == 2 and all_equal(ys) for ys in outs + grads)
+    for name, rows in T.named_leaves(sharded):
+        if name.startswith("blocks.") and TP.TP_DIMS_3D[name[len("blocks."):]] is not None:
+            continue
+        for row in rows:
+            for group in (row[:2], row[2:]) if name.startswith("blocks.") else (row,):
+                assert len(group) == 2 and all_equal(group), name
+                assert all_equal([p.grad for p in group]), name
 
 
 # --- the plan --------------------------------------------------------------------
 
 def test_plan_places_each_stage_and_column_on_its_mesh_device():
     """Stage s of row r on device (r·pp + s)·tp + c, the reference mesh's
-    order; embed on the row's stage 0, ln_f and unembed on its last."""
+    order; a norm on every tp device of its stage, embed on every one of
+    the row's stage 0, ln_f and unembed on every one of its last."""
     devs = tuple(torch.device("cuda", i) for i in range(8))
     plan3 = TP.PipelinePlan(Mesh({"dp": 2, "pp": 2, "tp": 2}, devs), TCFG)
     assert plan3.part_device("blocks.wq", 1, 3) == devs[7]  # row 1, stage 1, column 1
     assert plan3.part_device("blocks.wo", 0, 1) == devs[1]
-    assert plan3.part_device("blocks.ln2", 1, 1) == devs[6]  # row 1, stage 1's home
-    assert plan3.part_device("embed", 1, 0) == devs[4]
-    assert plan3.part_device("unembed", 1, 0) == plan3.part_device("ln_f", 1, 0) == devs[6]
+    assert [plan3.part_device("blocks.ln2", 1, i) for i in range(4)] == list(devs[4:])
+    assert [plan3.part_device("embed", 1, c) for c in range(2)] == list(devs[4:6])
+    for name in ("unembed", "ln_f"):
+        assert [plan3.part_device(name, 1, c) for c in range(2)] == list(devs[6:])
     plan2 = TP.PipelinePlan(Mesh({"dp": 2, "pp": 4}, devs), TCFG)
     assert [plan2.part_device("blocks.wqkv", 1, s) for s in range(4)] == list(devs[4:])
     assert plan2.part_device("unembed", 0, 0) == devs[3]

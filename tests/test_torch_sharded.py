@@ -6,8 +6,8 @@ __graft_entry__) on the CPU.
 The reference runs on the conftest's 8-device virtual CPU mesh, the port
 over ``[torch.device("cpu")] * 8``, both at dp 2 × tp 4 and at the
 reference test's sizes (tests/test_models.py), with 2 heads (which do not
-divide over tp = 4: the port gathers qkv on each row's home) and with 4
-(head-aligned shards).  The reference runs once per head count.
+divide over tp = 4: every column gathers qkv and attends over every
+head) and with 4 (head-aligned shards).  The reference runs once per head count.
 Tolerances, as in tests/test_torch_workload.py:
 
 - loss: 2^-10 of the reference's sharded loss (LOSS_RTOL);
@@ -39,8 +39,9 @@ from tpudash_torch.dryrun import dryrun_multichip, entry
 from tpudash_torch.models import workload as T
 from tpudash_torch.models.checkpoint import WorkloadCheckpointer
 from tpudash_torch.models.runner import WorkloadRunner
-from tpudash_torch.parallel.mesh import build_mesh
+from tpudash_torch.parallel.mesh import Mesh, build_mesh
 from tpudash_torch.sources.workload import WORKLOAD_TFLOPS, TorchWorkloadSource
+from torch_replicas import all_equal, record_block_replicas
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU8 = [torch.device("cpu")] * 8
@@ -137,12 +138,44 @@ def test_dp_replicas_stay_bitwise_equal(ref):
             assert all(torch.equal(s0[k], s1[k]) for k in ("exp_avg", "exp_avg_sq", "step")), name
 
 
+def test_every_tp_replica_of_the_stream_the_norms_and_their_gradients_is_bitwise_equal(
+        ref, monkeypatch):
+    """dp 2 × tp 4 after one step: every column of a row holds the residual
+    stream and the norms, and each replica, its gradient included, has the
+    bits of the row's others (the reference's SPMD program, where the tp
+    psum leaves every device the same sum)."""
+    outs, grads = record_block_replicas(monkeypatch, T)
+    sharded, _, _ = _sharded_after_one_step(ref)
+    L = ref["cfg"].n_layers
+    assert len(outs) == 2 * 2 * L and len(grads) == 2 * L  # rows × layers × (forward, recompute)
+    for ys in outs:
+        assert len(ys) == 4 and all_equal(ys)
+    for gs in grads:
+        assert len(gs) == 4 and all_equal(gs)
+    for name in ("blocks.ln1", "blocks.ln2", "ln_f"):
+        rows = dict(T.named_leaves(sharded))[name]
+        for row in rows:
+            assert len(row) == 4 and all_equal(row) and all_equal([p.grad for p in row]), name
+        assert not torch.equal(rows[0][0], torch.ones_like(rows[0][0])), name  # it was trained
+
+
+def test_the_plan_puts_each_norm_on_every_device_of_its_tp_group():
+    devs = tuple(torch.device("cuda", i) for i in range(8))
+    plan = T.ShardPlan(Mesh({"dp": 2, "tp": 4}, devs), _cfgs(4)[1])
+    for name in ("blocks.ln1", "blocks.ln2", "ln_f"):
+        assert len(plan.split(name, torch.ones(8))) == 4
+        for r in range(2):
+            assert [plan.part_device(name, r, c) for c in range(4)] == list(devs[4 * r:4 * r + 4])
+
+
 def test_plan_shard_shapes_are_the_reference_param_shardings(ref):
     plan = T.shard_plan(_mesh(), ref["cfg"])
     sharded = T.shard_params(T.params_from_numpy(ref["params"], "cpu"), plan)
     want = dict(T.named_leaves(ref["shard_shapes"]))
     for name, rows in T.named_leaves(sharded):
-        assert len(rows) == 2 and len(rows[0]) == (1 if T.TP_DIMS[name] is None else 4), name
+        # a replicated leaf (the norms, ns(None, None)) has a replica on
+        # every tp device, as a split leaf has a shard there
+        assert len(rows) == 2 and len(rows[0]) == 4, name
         assert {tuple(s.shape) for row in rows for s in row} == {tuple(want[name])}, name
     assert plan.heads_aligned == (ref["cfg"].n_heads % 4 == 0)
 

@@ -38,6 +38,10 @@ call.  By phase:
   host issue, busy share and peak memory per GPU), then the MoE step
   graphed against eager.
 
+Each step's timings include ``Memcpy PtoP`` and ``Memcpy DtoD`` ms a step
+summed over the GPUs and the busy share per GPU; the sharded and 3D phases
+hold every tp replica of the norms (and the 3D step's embed, ln_f and
+unembed) and its gradient bitwise equal over its group after a step.
 ``chip_smoke.py`` runs their rehearsals on one card.  ``--phases`` picks
 which run (all by default).  It fails on a host with fewer than two GPUs,
 and on any failed check.
@@ -76,6 +80,7 @@ def main(argv: list) -> int:
     if n < 2:
         print(f"workload_check: {n} GPU(s); the multi-GPU paths need two or more", file=sys.stderr)
         return 1
+    chip_smoke.start_device_tracing()  # before the first capture
     card = chip_smoke.card_line()
     gen = resolve_generation_from_device_name(torch.cuda.get_device_name(0)) or DEFAULT_GENERATION
     print(f"cards: {card} (x{n}); torch {torch.__version__} cuda {torch.version.cuda}")

@@ -19,17 +19,25 @@ Where the port differs from the reference, without changing the result:
   backward), so that work on different devices overlaps;
 - the reference embeds on every stage and keeps ``ln_f`` and ``unembed``
   on every stage.  The port holds ``embed`` on each row's stage 0 and
-  ``ln_f`` and ``unembed`` on its last stage, one copy per dp row, whose
-  gradients are summed over the rows like every replica's
-  (``workload.plan_train_step``), so that the copies stay bitwise equal.
+  ``ln_f`` and ``unembed`` on its last stage (in 3D, a copy on each of
+  that stage's tp devices), whose gradients are summed over the dp rows
+  like every replica's (``workload.plan_train_step``), so that the copies
+  stay bitwise equal.
 
 The 3D step takes the reference's 3D tree (:func:`convert_params_3d`
 splits the fused ``wqkv`` into ``wq``, ``wk`` and ``wv``).  Inside a stage
 each layer runs Megatron tp over the stage's tp devices with the sharded
 step's block (``workload._sharded_block``): column shard c of ``wq``, ``wk``
 and ``wv`` holds whole heads (the heads must divide over tp), and the three
-are joined into the head-aligned qkv shard that block takes.  The
-reference computes all of it in plain XLA, so there is no hand kernel here.
+are joined into the head-aligned qkv shard that block takes.  As in the
+reference, every tp device of a stage holds the activations and the
+stage's norms: stage 0's embed on each, and ``ln_f`` and ``unembed`` on
+each of the last stage's, where every column computes the loss and each
+gets its gradient (the reference's "activations are tp-replicated after
+each psum, so the loss is already identical across tp").  Stage s hands
+column c's activations to column c of stage s + 1, as the reference's
+``ppermute`` over ``pp`` does.  The reference computes all of it in plain
+XLA, so there is no hand kernel here.
 """
 
 from __future__ import annotations
@@ -40,13 +48,14 @@ from dataclasses import dataclass
 import torch
 
 from tpudash_torch.models import workload as w
+from tpudash_torch.parallel.collectives import one_of_replicas
 from tpudash_torch.parallel.mesh import Mesh
 
 #: a layer's tensors in ``workload._block``'s order
 _LAYER = ("ln1", "wqkv", "wo", "ln2", "w_up", "w_down")
-#: a 3D layer's tp-split tensors, in the order :func:`_block_3d` takes each
-#: column's
-_COLUMN_3D = ("wq", "wk", "wv", "wo", "w_up", "w_down")
+#: a 3D layer's tensors of one column, its activations first, in the order
+#: :func:`_block_3d` takes each column's
+_COLUMN_3D = ("h", "ln1", "ln2", "wq", "wk", "wv", "wo", "w_up", "w_down")
 #: the dim of each 3D block leaf that splits over tp, None for one that the
 #: stage's tp devices share (``tpudash/models/pipeline.py::_stage_param_specs_3d``:
 #: q, k, v and up column-parallel, o and down row-parallel)
@@ -70,10 +79,9 @@ class PipelinePlan:
     """Where each parameter lives on a (dp, pp) or (dp, pp, tp) mesh, in the
     layout of ``workload.shard_params``: a leaf is a tuple over the dp rows
     of a tuple of parts.  A block leaf has one part per stage (its layers),
-    or, in 3D, one per (stage, tp column) in that order, a norm one per
-    stage; ``embed`` is one part on the row's stage 0, ``ln_f`` and
-    ``unembed`` one on its last stage.  A stage's norms and activations lie
-    on its first tp device, the stage's home."""
+    or, in 3D, one per (stage, tp column) in that order, a norm's replicas
+    included; ``embed`` has one part on each tp device of the row's stage
+    0, ``ln_f`` and ``unembed`` one on each of its last stage's."""
 
     mesh: Mesh
     cfg: w.WorkloadConfig
@@ -97,33 +105,33 @@ class PipelinePlan:
         return TP_DIMS_3D[name.split(".")[1]] if self.tp > 1 else None
 
     def split(self, name: str, full: torch.Tensor) -> list:
-        """The parts of the full leaf ``name`` (views)."""
+        """The parts of the full leaf ``name`` (views; a leaf the tp devices
+        share, once for each)."""
+        T = self.tp
         if not name.startswith("blocks."):
-            return [full]
+            return [full] * T
         dim = self._tp_dim(name)
-        stages = full.chunk(self.pp, 0)
-        return list(stages) if dim is None else [c for s in stages for c in s.chunk(self.tp, dim)]
+        return [c for s in full.chunk(self.pp, 0)
+                for c in ([s] * T if dim is None else s.chunk(T, dim))]
 
     def join(self, name: str, parts: list) -> torch.Tensor:
         """The inverse of :meth:`split`: a new full leaf on the first part's
-        device."""
-        parts = [p.to(parts[0].device) for p in parts]
+        device, a shared leaf from its first tp column."""
+        T, dev = self.tp, parts[0].device
         if not name.startswith("blocks."):
             return parts[0].clone()
         dim = self._tp_dim(name)
-        if dim is not None:
-            T = self.tp
-            parts = [torch.cat(parts[s * T:(s + 1) * T], dim) for s in range(self.pp)]
-        return torch.cat(parts, 0)
+        stages = [parts[s * T] if dim is None
+                  else torch.cat([p.to(dev) for p in parts[s * T:(s + 1) * T]], dim)
+                  for s in range(self.pp)]
+        return torch.cat([s.to(dev) for s in stages], 0)
 
     def part_device(self, name: str, row: int, i: int) -> torch.device:
         """The device of part ``i`` of leaf ``name`` in dp row ``row``."""
         if name == "embed":
-            return self.device(row, 0)
+            return self.device(row, 0, i)
         if not name.startswith("blocks."):
-            return self.device(row, self.pp - 1)
-        if self._tp_dim(name) is None:
-            return self.device(row, i)
+            return self.device(row, self.pp - 1, i)
         return self.device(row, *divmod(i, self.tp))
 
     def replicas(self, sharded: dict) -> list:
@@ -152,32 +160,30 @@ def _layer(cfg: w.WorkloadConfig, h: torch.Tensor, *weights) -> torch.Tensor:
     return w._block(h, *weights, cfg)
 
 
-def _block_3d(cfg: w.WorkloadConfig, h: torch.Tensor, ln1: torch.Tensor, ln2: torch.Tensor,
-              *shards) -> torch.Tensor:
-    """One layer over a stage's tp devices: ``h`` and the norms lie on the
-    stage's home, ``shards`` are each column's tensors in ``_COLUMN_3D``
-    order, column after column, each on its device."""
+def _block_3d(cfg: w.WorkloadConfig, *tensors) -> tuple:
+    """One layer over a stage's tp devices: ``tensors`` are each column's
+    in ``_COLUMN_3D`` order, column after column, each on its device."""
     fused = []
-    for i in range(0, len(shards), len(_COLUMN_3D)):
-        wq, wk, wv, wo, w_up, w_down = shards[i:i + len(_COLUMN_3D)]
-        fused += [torch.cat([wq, wk, wv], -1), wo, w_up, w_down]
-    return w._sharded_block(cfg, True, h, ln1, ln2, *fused)
+    for i in range(0, len(tensors), len(_COLUMN_3D)):
+        h, ln1, ln2, wq, wk, wv, wo, w_up, w_down = tensors[i:i + len(_COLUMN_3D)]
+        fused += [h, ln1, ln2, torch.cat([wq, wk, wv], -1), wo, w_up, w_down]
+    return w._sharded_block(cfg, True, *fused)
 
 
-def _run_stage(plan: PipelinePlan, sharded: dict, row: int, stage: int,
-               x: torch.Tensor) -> torch.Tensor:
-    """Stage ``stage`` of dp row ``row`` on the activations ``x`` (on the
-    stage's home): its layers in order, each recomputed in backward."""
+def _run_stage(plan: PipelinePlan, sharded: dict, row: int, stage: int, xs: list) -> list:
+    """Stage ``stage`` of dp row ``row`` on the activations ``xs``, one
+    replica on each of the stage's tp devices: its layers in order, each
+    recomputed in backward."""
     b, cfg, T = sharded["blocks"], plan.cfg, plan.tp
     for j in range(cfg.n_layers // plan.pp):
         if T == 1:
-            x = w.checkpoint_across_devices(functools.partial(_layer, cfg), x,
-                                            *(b[n][row][stage][j] for n in _LAYER))
+            xs = [w.checkpoint_across_devices(functools.partial(_layer, cfg), xs[0],
+                                              *(b[n][row][stage][j] for n in _LAYER))]
         else:
-            shards = [b[n][row][stage * T + c][j] for c in range(T) for n in _COLUMN_3D]
-            x = w.checkpoint_across_devices(functools.partial(_block_3d, cfg), x,
-                                            b["ln1"][row][stage][j], b["ln2"][row][stage][j], *shards)
-    return x
+            xs = list(w.checkpoint_across_devices(functools.partial(_block_3d, cfg), *(
+                t for c in range(T)
+                for t in (xs[c], *(b[n][row][stage * T + c][j] for n in _COLUMN_3D[1:])))))
+    return xs
 
 
 def pipeline_loss_fn(sharded: dict, tokens: torch.Tensor, plan: PipelinePlan,
@@ -192,21 +198,26 @@ def pipeline_loss_fn(sharded: dict, tokens: torch.Tensor, plan: PipelinePlan,
     if (B // dp) % M:
         raise ValueError(f"local batch {B // dp} not divisible by microbatches {M}")
     rows = [t.to(plan.device(r)) for r, t in enumerate(tokens.chunk(dp, 0))]
-    acts = [list(sharded["embed"][r][0][t[:, :-1]].chunk(M, 0)) for r, t in enumerate(rows)]
+    # acts[r][m][c]: row r's microbatch m on tp column c of its stage
+    acts = [list(zip(*(e[t[:, :-1].to(e.device)].chunk(M, 0) for e in sharded["embed"][r])))
+            for r, t in enumerate(rows)]
     # GPipe order: at tick t stage s runs microbatch t − s, which stage s − 1
     # ran at tick t − 1
     for tick in range(M + pp - 1):
         for r in range(dp):
             for s in range(max(0, tick - M + 1), min(pp, tick + 1)):
-                x = acts[r][tick - s]
-                acts[r][tick - s] = _run_stage(plan, sharded, r, s, x.to(plan.device(r, s)))
+                xs = [x.to(plan.device(r, s, c)) for c, x in enumerate(acts[r][tick - s])]
+                acts[r][tick - s] = _run_stage(plan, sharded, r, s, xs)
     dev0 = plan.device(0)
     losses = []
     for r, t in enumerate(rows):
-        h = w._rmsnorm(torch.cat(acts[r], 0), sharded["ln_f"][r][0]).float()
-        logp = torch.log_softmax(torch.matmul(h, sharded["unembed"][r][0].float()), dim=-1)
-        targets = t[:, 1:].to(h.device)
-        losses.append(-logp.gather(-1, targets[..., None]).squeeze(-1).mean().to(dev0))
+        per_column = []
+        for c, (ln_f, unembed) in enumerate(zip(sharded["ln_f"][r], sharded["unembed"][r])):
+            h = w._rmsnorm(torch.cat([a[c] for a in acts[r]], 0), ln_f).float()
+            logp = torch.log_softmax(torch.matmul(h, unembed.float()), dim=-1)
+            targets = t[:, 1:].to(h.device)
+            per_column.append(-logp.gather(-1, targets[..., None]).squeeze(-1).mean())
+        losses.append(one_of_replicas(per_column).to(dev0))
     return torch.stack(losses).mean()
 
 

@@ -25,8 +25,10 @@ The dp×tp sharded step (``make_sharded_train_step``) runs over a
 over a local mesh does, and returns it compiled as that ``jax.jit`` is:
 on GPUs one CUDA graph over the mesh (``models/graphed.py``).  A sharded
 leaf is a tuple over the dp rows of a tuple over the tp columns of
-per-device tensors (:class:`ShardPlan`); collectives are copies between
-devices that autograd sees.
+per-device tensors (:class:`ShardPlan`).  The step is the reference's SPMD
+program: every device of a row holds the residual stream and the norms,
+and the tp psums and the dp gradient all-reduce are group collectives
+(``parallel/collectives.py``) that autograd sees.
 """
 
 from __future__ import annotations
@@ -40,6 +42,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tpudash_torch.models.graphed import compiled
+from tpudash_torch.parallel.collectives import (
+    allreduce_replicas,
+    copy_to_group,
+    gather_from_group,
+    psum_group,
+    reduce_from_group,
+    scatter_to_group,
+)
 from tpudash_torch.parallel.mesh import Mesh
 
 
@@ -269,15 +279,16 @@ TP_DIMS = {
 class ShardPlan:
     """Where each parameter of ``cfg`` lives on a (dp, tp) mesh.
 
-    Row r of the mesh is one data-parallel replica.  Its first device, the
-    row's home, holds the residual stream, the norms and the loss; column c
-    holds shard c of each tp-split leaf.  ``wqkv`` splits by heads when the
-    heads divide over tp: shard c holds the q, k and v columns of heads
-    c·H/tp to (c+1)·H/tp − 1, so that attention runs where the shard lies.
-    When they do not, it splits in contiguous column blocks, as the
-    reference's ``P(None, None, "tp")`` lays it out, and the row's home
-    gathers qkv and runs attention.  Either way a shard has the
-    reference's shard shape.
+    Row r of the mesh is one data-parallel replica.  Column c holds shard c
+    of each tp-split leaf and a replica of each norm, as the reference's
+    ``ns(None, None)`` replicates them, and runs the layers on its replica
+    of the residual stream; the row's loss lies on its first device.
+    ``wqkv`` splits by heads when the heads divide over tp: shard c holds
+    the q, k and v columns of heads c·H/tp to (c+1)·H/tp − 1, so that
+    attention runs where the shard lies.  When they do not, it splits in
+    contiguous column blocks, as the reference's ``P(None, None, "tp")``
+    lays it out, and every column gathers qkv and attends over every head.
+    Either way a shard has the reference's shard shape.
     """
 
     mesh: Mesh
@@ -300,11 +311,11 @@ class ShardPlan:
 
     def split(self, name: str, full: torch.Tensor) -> list:
         """The shards of the full leaf ``name`` on its device (views where
-        a slice will do): tp of them, or the leaf itself for a replicated
-        leaf."""
+        a slice will do), tp of them; for a replicated leaf, the leaf itself
+        tp times."""
         dim = TP_DIMS[name]
         if dim is None:
-            return [full]
+            return [full] * self.tp
         if name == "blocks.wqkv" and self.heads_aligned:
             d = self.cfg.d_model
             w = d // self.tp
@@ -316,9 +327,9 @@ class ShardPlan:
         """The inverse of :meth:`split`: a new full leaf on the first
         shard's device."""
         dim = TP_DIMS[name]
-        parts = [p.to(parts[0].device) for p in parts]
-        if dim is None:
+        if dim is None:  # column 0's replica
             return parts[0].clone()
+        parts = [p.to(parts[0].device) for p in parts]
         if name == "blocks.wqkv" and self.heads_aligned:
             w = self.cfg.d_model // self.tp
             return torch.cat([p.narrow(dim, j * w, w) for j in range(3) for p in parts], dim)
@@ -351,8 +362,8 @@ def shard_plan(mesh: Mesh, cfg: WorkloadConfig) -> ShardPlan:
 def shard_params(tree: dict, plan: ShardPlan) -> dict:
     """The full tree's shards, each a tensor of its own on the device the
     plan names: every leaf becomes a tuple over the dp rows of a tuple over
-    the shards ``plan.split`` gives (for a :class:`ShardPlan`, tp of them,
-    or one on the row's home for a norm)."""
+    the parts ``plan.split`` gives (for a :class:`ShardPlan`, tp of them,
+    a norm's replicas included)."""
     out = []
     for name, full in named_leaves(tree):
         parts = plan.split(name, full.detach())
@@ -364,7 +375,8 @@ def shard_params(tree: dict, plan: ShardPlan) -> dict:
 
 
 def gather_params(sharded: dict, plan: ShardPlan) -> dict:
-    """The full tree from row 0's shards, as new tensors on row 0's home."""
+    """The full tree from row 0's shards, as new tensors on row 0's first
+    device (a replicated leaf from column 0)."""
     return _unflatten((name, plan.join(name, [p.detach() for p in rows[0]]))
                       for name, rows in named_leaves(sharded))
 
@@ -414,9 +426,10 @@ def gather_optimizer_state(optimizer: torch.optim.Optimizer, sharded: dict,
 
 
 def gather_train_state(sharded: dict, optimizer: torch.optim.Optimizer, plan: ShardPlan):
-    """The inverse of ``shard_inputs``: the full tree on row 0's home and an
-    AdamW over it holding the moments an unsharded optimizer would.  A
-    checkpoint saves this, so that it is the same whatever the mesh."""
+    """The inverse of ``shard_inputs``: the full tree on row 0's first
+    device and an AdamW over it holding the moments an unsharded optimizer
+    would.  A checkpoint saves this, so that it is the same whatever the
+    mesh."""
     params = gather_params(sharded, plan)
     for p in leaves(params):
         p.requires_grad_(True)
@@ -458,15 +471,18 @@ class _RowParallel(torch.autograd.Function):
 
 
 class _ColumnParallel(torch.autograd.Function):
-    """``x`` (bf16, on the row's home) times each column shard ``ws[c]`` on
-    that shard's device: the unsharded bf16 product, one column block per
-    device.  The backward adds the shards' gradients of ``x`` in f32 on the
-    home and rounds once, as the unsharded product's one backward product
-    does (autograd would add them rounded, in bf16)."""
+    """Each column's replica ``xs[c]`` (bf16) times its column shard
+    ``ws[c]``, both on the column's device: the unsharded bf16 product, one
+    column block per device.  Megatron's "f" sits at its input: the
+    backward gives every replica the psum of the columns' f32 partial
+    gradients, in column order and rounded once, as the unsharded
+    product's one backward product rounds (autograd would add them
+    rounded, in bf16)."""
 
     @staticmethod
-    def forward(ctx, x, *ws):
-        xs = [x.to(w.device) for w in ws]
+    def forward(ctx, *args):
+        n = len(args) // 2
+        xs, ws = args[:n], args[n:]
         ctx.save_for_backward(*xs, *ws)
         return tuple(torch.matmul(xc, w) for xc, w in zip(xs, ws))
 
@@ -474,22 +490,10 @@ class _ColumnParallel(torch.autograd.Function):
     def backward(ctx, *gs):
         saved = ctx.saved_tensors  # unpack once: checkpoint allows no more
         xs, ws = saved[:len(gs)], saved[len(gs):]
-        home = xs[0].device
-        gx, gws = None, []
-        for xc, w, g in zip(xs, ws, gs):
-            part = _mm_f32(_flat(g), w.t()).to(home)
-            gx = part if gx is None else gx + part
-            gws.append(torch.matmul(_flat(xc).t(), _flat(g)))
-        return (gx.reshape(xs[0].shape).to(torch.bfloat16), *gws)
-
-
-def _reduce(parts: list, home: torch.device) -> torch.Tensor:
-    """The sum of f32 partials on ``home``, in column order, rounded to
-    bf16 once."""
-    acc = parts[0].to(home)
-    for p in parts[1:]:
-        acc = acc + p.to(home)
-    return acc.to(torch.bfloat16)
+        parts = [_mm_f32(_flat(g), w.t()) for w, g in zip(ws, gs)]
+        gxs = [g.reshape(xs[0].shape) for g in psum_group(parts, torch.bfloat16)]
+        gws = [torch.matmul(_flat(xc).t(), _flat(g)) for xc, g in zip(xs, gs)]
+        return (*gxs, *gws)
 
 
 def checkpoint_across_devices(fn, *tensors):
@@ -508,39 +512,50 @@ def checkpoint_across_devices(fn, *tensors):
     return checkpoint(fn, *tensors, use_reentrant=True, preserve_rng_state=False)
 
 
-def _sharded_block(cfg, aligned, h, ln1, ln2, *shards):
-    """One layer over a dp row's tp devices: ``h`` lies on the row's home
-    with the norms, and ``shards`` are the layer's wqkv, wo, w_up and w_down
-    shards, tp of each in column order, each on its device."""
-    home = h.device
-    wqkv, wo, w_up, w_down = (shards[i::4] for i in range(4))
-    qkv = _ColumnParallel.apply(_rmsnorm(h, ln1), *wqkv)
+#: a column's tensors of one layer, in the order :func:`_sharded_block`
+#: takes them
+COLUMN = ("h", "ln1", "ln2", "wqkv", "wo", "w_up", "w_down")
+
+
+def _sharded_block(cfg, aligned, *tensors):
+    """One layer over a tp group, as the reference's SPMD program runs it:
+    column c's replica of the residual stream, its replicas of the norms
+    and its wqkv, wo, w_up and w_down shards are ``tensors[7c:7c + 7]``
+    (:data:`COLUMN` order), all on its device.  Each column normalises its
+    own replica; each row-parallel product's f32 partials are psummed over
+    the group in column order and rounded once.  Returns every column's
+    replica of the layer's output, all of them the same bits."""
+    hs, ln1, ln2, wqkv, wo, w_up, w_down = (tensors[i::len(COLUMN)] for i in range(len(COLUMN)))
+    qkv = _ColumnParallel.apply(*(_rmsnorm(h, s) for h, s in zip(hs, ln1)), *wqkv)
     if aligned:  # each column attends over its own heads
         outs = [_heads(t, cfg.head_dim) for t in qkv]
-    else:  # the home gathers qkv's column blocks and attends over every head
-        out = _heads(torch.cat([t.to(home) for t in qkv], -1), cfg.head_dim)
-        outs = [o.to(w.device) for o, w in zip(out.chunk(len(wo), -1), wo)]
-    h = h + _reduce([_RowParallel.apply(o, w) for o, w in zip(outs, wo)], home)
-    ups = _ColumnParallel.apply(_rmsnorm(h, ln2), *w_up)
-    return h + _reduce([_RowParallel.apply(F.gelu(u, approximate="tanh"), w)
-                        for u, w in zip(ups, w_down)], home)
+    else:  # every column attends over every head and keeps its own columns
+        outs = scatter_to_group([_heads(t, cfg.head_dim) for t in gather_from_group(qkv, -1)], -1)
+    attn = reduce_from_group([_RowParallel.apply(o, w) for o, w in zip(outs, wo)], torch.bfloat16)
+    hs = [h + a for h, a in zip(hs, attn)]
+    ups = _ColumnParallel.apply(*(_rmsnorm(h, s) for h, s in zip(hs, ln2)), *w_up)
+    mlp = reduce_from_group([_RowParallel.apply(F.gelu(u, approximate="tanh"), w)
+                             for u, w in zip(ups, w_down)], torch.bfloat16)
+    return tuple(h + m for h, m in zip(hs, mlp))
 
 
 def _row_logits(sharded: dict, tokens: torch.Tensor, plan: ShardPlan, row: int) -> torch.Tensor:
-    """The forward of dp row ``row`` on its tokens → f32 logits on its home."""
-    home = plan.device(row)
-    x = torch.cat([e[tokens.to(e.device)].to(home) for e in sharded["embed"][row]], -1)
+    """The forward of dp row ``row`` on its tokens → f32 logits on the row's
+    first device.  The embedding's column shards are all-gathered, so that
+    every column holds the residual stream; the vocab-parallel logits come
+    together for the loss."""
+    xs = gather_from_group([e[tokens.to(e.device)] for e in sharded["embed"][row]], -1)
     b = sharded["blocks"]
     block = functools.partial(_sharded_block, plan.cfg, plan.heads_aligned)
     for layer in range(plan.cfg.n_layers):
-        shards = [t[layer] for cols in zip(*(b[n][row] for n in ("wqkv", "wo", "w_up", "w_down")))
-                  for t in cols]
-        x = checkpoint_across_devices(block, x, b["ln1"][row][0][layer], b["ln2"][row][0][layer],
-                                      *shards)
-    # cast once on the home, so that the shards' gradients add up in f32
-    x = _rmsnorm(x, sharded["ln_f"][row][0]).float()
-    return torch.cat([torch.matmul(x.to(u.device), u.float()).to(home)
-                      for u in sharded["unembed"][row]], -1)
+        xs = checkpoint_across_devices(block, *(
+            t for c, x in enumerate(xs) for t in (x, *(b[n][row][c][layer] for n in COLUMN[1:]))))
+    # cast each replica to f32 before "f", so that the columns' gradients
+    # add up in f32 and round once
+    xs = copy_to_group([_rmsnorm(x, s).float() for x, s in zip(xs, sharded["ln_f"][row])])
+    home = plan.device(row)
+    return torch.cat([torch.matmul(x, u.float()).to(home)
+                      for x, u in zip(xs, sharded["unembed"][row])], -1)
 
 
 def sharded_loss_fn(sharded: dict, tokens: torch.Tensor, plan: ShardPlan) -> torch.Tensor:
@@ -559,19 +574,14 @@ def sharded_loss_fn(sharded: dict, tokens: torch.Tensor, plan: ShardPlan) -> tor
 
 
 def sum_replica_grads(replicas: list) -> None:
-    """Give every replica of one tensor the sum of their gradients: added
-    in f32 in replica order on the first one's device, rounded once to the
-    parameter's dtype and copied to each, so the replicas stay bitwise
-    equal through the optimizer's step."""
+    """Give every replica of one tensor the sum of their gradients, an
+    all-reduce over the group (:func:`allreduce_replicas`: added in f32 in
+    replica order, rounded once to the parameter's dtype), so the replicas
+    stay bitwise equal through the optimizer's step."""
     if len(replicas) == 1:
         return
-    home = replicas[0].device
-    g = replicas[0].grad.float()
-    for p in replicas[1:]:
-        g = g + p.grad.to(home).float()
-    g = g.to(replicas[0].dtype)
-    for p in replicas:
-        p.grad = g.to(p.device)
+    for p, g in zip(replicas, allreduce_replicas([p.grad for p in replicas])):
+        p.grad = g
 
 
 def row_replicas(sharded: dict) -> list:

@@ -1,4 +1,5 @@
-"""Inter-device probes: the counterpart of ``tpudash/parallel/collectives.py``.
+"""Inter-device probes: the counterpart of ``tpudash/parallel/collectives.py``;
+and the group collectives of the port's SPMD train steps.
 
 A ring shift (each device sends its shard to its +1 neighbour: the
 per-link number), an all-gather (each device receives n−1 shards) and a tiny
@@ -241,3 +242,190 @@ def psum_latency_probe(devices: Sequence) -> ProbeResult:
         elapsed_s=dt,
         detail={"axis": AXIS, "devices": len(devices), "unit": "us"},
     )
+
+
+# --- group collectives of the train steps -------------------------------------------
+
+
+def _chunks(t: torch.Tensor, n: int) -> tuple:
+    """``t`` flattened and cut into ``n`` contiguous chunks (views), as even
+    as they come; some are empty when ``t`` has fewer than ``n`` elements."""
+    return t.reshape(-1).tensor_split(n)
+
+
+def psum_group(parts: Sequence[torch.Tensor], dtype: "torch.dtype | None" = None) -> list:
+    """The sum of ``parts``, one tensor of one shape per slot of a group
+    (a device may fill several slots), on every slot's device: added in f32
+    (in the parts' own dtype where that is wider) in the order of ``parts``
+    and rounded once to ``dtype`` (default: the parts' dtype).  Every slot
+    gets a tensor of its own, and all of them hold the same bits.
+
+    A reduce-scatter, then an all-gather: slot j adds chunk j of every part
+    in list order and rounds it, then every slot gathers the rounded
+    chunks.  The sum is elementwise, so the chunking changes no bit: the
+    result is that of one device adding the whole parts in list order.
+    Round r of each phase sends from every slot k to slot k + r, so that
+    no two copies of a round leave or enter one slot.  A copy runs on its
+    source slot's side stream (:func:`_side_streams`, which waits for the
+    slot's current stream, where its part was made); PyTorch's rule for a
+    copy between devices orders it after the destination's current stream
+    and that stream after it, so each chunk sum waits for every peer's
+    chunk and each gathered chunk for its sum.  The current streams wait for
+    the side streams before this returns.  Within a CUDA graph's capture the
+    side streams join the capture, as the graph's own do.  On one device
+    named several times the copies are local and the result is the same.
+    """
+    n = len(parts)
+    out_dtype = dtype or parts[0].dtype
+    acc_dtype = torch.promote_types(parts[0].dtype, torch.float32)
+    devices = [p.device for p in parts]
+    chunks = [_chunks(p, n) for p in parts]
+    outs = [torch.empty(parts[0].shape, dtype=out_dtype, device=d) for d in devices]
+    out_chunks = [_chunks(o, n) for o in outs]
+    streams = _side_streams(devices)
+    got = [[None] * n for _ in range(n)]  # got[j][k]: chunk j of part k on slot j
+    for j in range(n):
+        got[j][j] = chunks[j][j]
+    for r in range(1, n):
+        for k in range(n):
+            j = (k + r) % n
+            with _on(streams[k]):
+                got[j][k] = chunks[k][j].to(devices[j], non_blocking=True)
+    for j in range(n):
+        acc = got[j][0].to(acc_dtype)
+        for k in range(1, n):
+            acc = acc + got[j][k].to(acc_dtype)
+        out_chunks[j][j].copy_(acc)  # the one rounding
+    for d, s in zip(devices, streams):
+        if s is not None:
+            s.wait_stream(torch.cuda.current_stream(d))  # the rounded chunks are made
+    for r in range(1, n):
+        for j in range(n):
+            i = (j + r) % n
+            with _on(streams[j]):
+                out_chunks[i][j].copy_(out_chunks[j][j], non_blocking=True)
+    for d, s in zip(devices, streams):
+        if s is not None:
+            torch.cuda.current_stream(d).wait_stream(s)
+    return outs
+
+
+def allreduce_replicas(tensors: Sequence[torch.Tensor]) -> list:
+    """:func:`psum_group` of one tensor's replicas (a gradient over dp rows,
+    sp or ep slots, or a pipeline's row copies), rounded once to their own
+    dtype: every replica's device gets the sum in replica order."""
+    return psum_group(tensors)
+
+
+def _concat_on_each(parts: Sequence[torch.Tensor], dim: int) -> list:
+    """``cat(parts, dim)`` on every part's device."""
+    return [torch.cat([p.to(d) for p in parts], dim) for d in (p.device for p in parts)]
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's "f": identity forward; backward, every replica's gradient
+    becomes the psum of the group's, each replica holding a part of it."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        return xs
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return tuple(psum_group(gs))
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's "g": the psum of the partials forward, rounded once to
+    ``dtype``; identity backward, each partial taking its replica's
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, dtype, *parts):
+        return tuple(psum_group(parts, dtype))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, *gs)
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """All-gather along ``dim`` forward: every slot gets the whole tensor;
+    backward, each part takes its own slice of its slot's gradient."""
+
+    @staticmethod
+    def forward(ctx, dim, *parts):
+        ctx.dim, ctx.sizes = dim, [p.shape[dim] for p in parts]
+        return tuple(_concat_on_each(parts, dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        starts = [sum(ctx.sizes[:c]) for c in range(len(gs))]
+        return (None, *(g.narrow(ctx.dim, s, w) for g, s, w in zip(gs, starts, ctx.sizes)))
+
+
+class _ScatterToGroup(torch.autograd.Function):
+    """The inverse pair: slot c keeps chunk c (of n equal ones) of its
+    replica along ``dim`` forward; backward, every slot gets the whole
+    gradient, all-gathered."""
+
+    @staticmethod
+    def forward(ctx, dim, *xs):
+        ctx.dim = dim
+        return tuple(x.chunk(len(xs), dim)[c] for c, x in enumerate(xs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, *_concat_on_each(gs, ctx.dim))
+
+
+class _OneOfReplicas(torch.autograd.Function):
+    """The value a group's replicas share, as the first one's; backward,
+    every replica gets the gradient, as every device of an SPMD program
+    gets the cotangent of its replicated output."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        ctx.devices = [x.device for x in xs]
+        return xs[0].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(g.to(d, copy=True) for d in ctx.devices)
+
+
+# Every slot of a tp group holds a replica of the activations and receives
+# the whole gradient of its replica, Megatron's convention: a replicated
+# leaf's gradient comes out the same on every slot and is never summed over
+# the group.
+
+
+def copy_to_group(xs: Sequence[torch.Tensor]) -> tuple:
+    """Megatron's "f" over a group's replicas: each replica, its gradient
+    the psum of the group's (:func:`psum_group`, in the gradients'
+    dtype)."""
+    return _CopyToGroup.apply(*xs)
+
+
+def reduce_from_group(parts: Sequence[torch.Tensor], dtype: torch.dtype) -> tuple:
+    """Megatron's "g": the psum of ``parts`` rounded once to ``dtype`` on
+    every slot; each part's gradient is its slot's."""
+    return _ReduceFromGroup.apply(dtype, *parts)
+
+
+def gather_from_group(parts: Sequence[torch.Tensor], dim: int) -> tuple:
+    """Each slot's shard along ``dim`` (a column block) gathered whole on
+    every slot; each shard's gradient is its own slice of its slot's."""
+    return _GatherFromGroup.apply(dim, *parts)
+
+
+def scatter_to_group(xs: Sequence[torch.Tensor], dim: int) -> tuple:
+    """Slot c's chunk c of its replica along ``dim``; each replica's
+    gradient is the gathered whole."""
+    return _ScatterToGroup.apply(dim, *xs)
+
+
+def one_of_replicas(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The value every replica holds (a copy of the first, on its device);
+    each replica's gradient is the whole one."""
+    return _OneOfReplicas.apply(*xs)
