@@ -29,7 +29,8 @@ From the root of a checkout, on a host with one H100:
    probe bench's arguments;
 6. drives the inter-GPU probes: a rehearsal over [cuda:0, cuda:0] always
    (its rates are one card's device-to-device copy rates, not an
-   interconnect's), and the real run over every GPU when there are several;
+   interconnect's, held to the memory peak), and the real run over every
+   GPU when there are several (held to NVLink's rate each way too);
 7. drives the training path at the workload source's full defaults on
    cuda:0: the card's loss against the CPU's on one sequence, the loss at
    init, TorchWorkloadSource training until 3 syncs with falling loss, step
@@ -38,8 +39,11 @@ From the root of a checkout, on a host with one H100:
    (a rehearsal: the mesh's maths on one card, not its placement; like
    every make_*_train_step's step, compiled: one CUDA graph on GPUs) against
    the unsharded step, with TorchWorkloadSource and the exporter emitting
-   chip_id 0 and 1; then ring attention at the defaults' shapes over an sp
-   ring of the same two slots against its oracle, and one ring train step;
+   chip_id 0 and 1; the vocab-parallel loss over the card named 1, 2, 4
+   and 8 times (against the plain loss, no f32 tensor of the vocabulary's
+   width at tp ≥ 2, graphed bitwise against eager); then ring attention
+   at the defaults' shapes over an sp ring of the same two slots against
+   its oracle, and one ring train step;
    each of these over every GPU too when there are several;
 7d. drives the pipeline paths at the same defaults: GPipe at dp 1 × pp 2
    and dp 2 × pp 2 (M = 4), the 3D step at dp 1 × pp 2 × tp 2 (M = 2), each
@@ -278,11 +282,21 @@ def ici_phase(devices: list, card: str, gen, label: str) -> None:
               f"(tx + rev)·1e9 = {(tx + rev) * 1e9}")
     rx = results[("all_gather_bandwidth_probe", None)].value
     check(src._cache["ici_rx"] == rx * 1e9, "ici_rx is not the all-gather's rate")
+    # distinct GPUs move each shard over NVLink: no rate above a GPU's
+    # links each way; one card named twice copies within its memory
+    distinct = len(_distinct(devices)) == len(devices)
+    link_gbps = gen.ici_links_per_chip * gen.ici_link_gbps
     for what, v in (("ring", tx), ("reverse ring", rev), ("all-gather", rx)):
         check(v <= MAX_SHARE_OF_PEAK * gen.hbm_gbps, f"{what} {v} GB/s above the memory peak")
+        check(not distinct or v <= MAX_SHARE_OF_PEAK * link_gbps,
+              f"{what} {v} GB/s above {MAX_SHARE_OF_PEAK:.0%} of the {link_gbps} GB/s of a GPU's "
+              "links each way")
     print(f"inter-GPU probes over {len(devices)} slots ({label}) [{card}]: fetch {fetch_s:.2f} s; "
           f"ring {tx:.2f} GB/s, reverse ring {rev:.2f} GB/s, all-gather {rx:.2f} GB/s per slot "
           f"(16 MiB shards; paired deltas {', '.join(f'{r.elapsed_s * 1e6:.1f}' for r in results.values())} us); "
+          + (f"{100 * tx / link_gbps:.2f} / {100 * rev / link_gbps:.2f} / {100 * rx / link_gbps:.2f} % of "
+             f"NVLink's {link_gbps:.0f} GB/s each way, bound {MAX_SHARE_OF_PEAK:.0%} of it; " if distinct
+             else f"bound {MAX_SHARE_OF_PEAK:.0%} of the memory peak; ") +
           f"ring and all-gather move the right shards; every ICI series present and > 0 for "
           f"every slot, xp == xn == (tx + rev)·1e9")
 
@@ -405,7 +419,7 @@ def training_phase(dev, card: str, gen) -> None:
     end.synchronize()
     step_ms = start.elapsed_time(end) / n
     peak = torch.cuda.max_memory_allocated(dev)
-    per_device, top, launches, _ = profile_steps(lambda: W.train_step(params, opt, batch, cfg), 3)
+    per_device, top, launches, _, _ = profile_steps(lambda: W.train_step(params, opt, batch, cfg), 3)
     del params, opt
     print(f"  [{card}]: step time (CUDA events, {n} steps) {step_ms:.3f} ms = "
           f"{flops / step_ms / 1e9:.2f} TFLOP/s counted "
@@ -738,6 +752,98 @@ def sharded_phase(devices: list, card: str, gen, label: str) -> dict:
     return {**t, "loss_rel": rel}
 
 
+def vocab_wide_tensors(run, vocab: int, dtype=None) -> list:
+    """(operation, shape) of every tensor (of ``dtype``, if given) whose
+    last dimension is ``vocab`` among the outputs of the operations that
+    ``run()`` makes, forward and backward (the backward on the calling
+    thread, where the recorder sees it), as a ``TorchDispatchMode`` sees
+    them."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    found = []
+
+    class Recorder(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            found.extend((str(func), tuple(t.shape)) for t in tree_leaves(out)
+                         if isinstance(t, torch.Tensor) and t.dim() and t.shape[-1] == vocab
+                         and dtype in (None, t.dtype))
+            return out
+
+    with torch.autograd.set_multithreading_enabled(False), Recorder():
+        run()
+    return found
+
+
+def vocab_parallel_phase(device_lists: list, card: str) -> None:
+    """The dp×tp step's vocab-parallel loss at the workload source's full
+    defaults over each of ``device_lists`` (a mesh of ``mesh_axes_for(n)``):
+    the loss against the plain ``loss_fn`` of the same parameters (rel
+    1e-4); no f32 tensor of the vocabulary's width made by the loss's
+    forward and backward at tp ≥ 2 (:func:`vocab_wide_tensors`), and some
+    at tp 1, where the one column's ``log_softmax`` is the control; at tp ≥
+    2, the compiled step (one capture, counted) against ``.eager`` with its
+    backward on one thread over 2 steps from equal states: losses,
+    parameters and gradients bitwise."""
+    import torch
+
+    from tpudash_torch.models import workload as W
+    from tpudash_torch.parallel.mesh import build_mesh, mesh_axes_for
+
+    cfg = W.WorkloadConfig(**WORKLOAD_DEFAULTS)
+    dev = device_lists[0][0]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    params = W.init_params(cfg, g)
+    batches = [torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=g, device=dev)
+               for _ in range(2)]
+    with torch.no_grad():
+        plain = W.loss_fn(params, batches[0], cfg).item()
+    for devices in device_lists:
+        t0 = time.perf_counter()
+        mesh = build_mesh(mesh_axes_for(len(devices)), devices)
+        tp = mesh.shape["tp"]
+        plan = W.shard_plan(mesh, cfg)
+        sharded = W.shard_params(params, plan)
+        for t in W.shard_leaves(sharded):
+            t.requires_grad_(True)
+        losses = []
+
+        def forward_backward():
+            losses.append(W.sharded_loss_fn(sharded, batches[0], plan))
+            losses[0].backward()
+
+        wide = vocab_wide_tensors(forward_backward, cfg.vocab, torch.float32)
+        loss = losses[0].item()
+        rel = abs(loss - plain) / plain
+        what = f"vocab-parallel loss over {len(devices)} slots, mesh {mesh.shape}"
+        check(math.isfinite(loss) and rel <= 1e-4, f"{what}: {loss} vs plain {plain} (rel {rel:.3e} > 1e-4)")
+        check(bool(wide) == (tp == 1), f"{what}: {len(wide)} f32 tensors of the vocabulary's width "
+              f"{cfg.vocab}, first {wide[:3]}")
+        del sharded, losses
+        verdict = f"{len(wide)} f32 tensors {cfg.vocab} wide (the control: one column's log_softmax)"
+        if tp > 1:
+            step, shard_inputs = W.make_sharded_train_step(mesh, cfg)
+            live, eager = shard_inputs(params, None), shard_inputs(params, None)
+            with counted_captures() as captures:
+                got = [step(*live, t).item() for t in batches]
+            with torch.autograd.set_multithreading_enabled(False):
+                want = [step.eager(*eager, t).item() for t in batches]
+            pairs = list(zip(W.shard_leaves(live[0]), W.shard_leaves(eager[0])))
+            check(captures == [1] and got == want and all(
+                torch.equal(a, b) and torch.equal(a.grad, b.grad) for a, b in pairs),
+                f"{what}: graphed {got} vs eager {want}, {len(captures)} captures; or a parameter "
+                "or gradient differs")
+            verdict = (f"no f32 tensor {cfg.vocab} wide in its forward and backward; graphed (1 "
+                       f"capture) bitwise against eager over 2 steps, losses {got[0]:.6f}, "
+                       f"{got[1]:.6f}, every parameter and gradient")
+            del step, live, eager, pairs
+        gc_cuda(_distinct(devices))
+        print(f"{what} [{card}]: {loss:.6f} vs plain loss_fn {plain:.6f} (rel {rel:.3e}, rtol 1e-4); "
+              f"{verdict}; {time.perf_counter() - t0:.1f} s")
+
+
 def ring_phase(devices: list, card: str, label: str) -> None:
     """Ring attention at the workload defaults' shapes (B 16, T 512, 16
     heads, hd 64) over a (dp, sp) mesh of ``devices``, against the unsharded
@@ -828,12 +934,13 @@ def step_timings(run, devices: list, steps: int) -> dict:
         torch.cuda.synchronize(d)
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
     peak = {str(d): torch.cuda.max_memory_allocated(d) - base[str(d)] for d in distinct}
-    per_device, top, ops, host_ops = profile_steps(run, 2)
+    per_device, top, ops, host_ops, copies_by_gpu = profile_steps(run, 2)
     busy = None if per_device is None else {i: ms / wall_ms for i, ms in per_device.items()}
-    copies = {kind: sum(ms for name, ms in top if f"Memcpy {kind}" in name) for kind in ("PtoP", "DtoD")}
+    copies = {kind: sum(ms for name, ms in top if f"Memcpy {kind}" in name) for kind in COPY_KINDS}
     return {"step_ms": wall_ms, "event_ms": start.elapsed_time(end) / steps, "issue_ms": issue_ms,
             "peak_above_base": peak, "device_ms": per_device, "busy": busy, "copies_ms": copies,
-            "ops": ops, "host_ops": host_ops, "top": top, "steps": steps + 3, "last": last}
+            "copies_ms_by_gpu": copies_by_gpu, "ops": ops, "host_ops": host_ops, "top": top,
+            "steps": steps + 3, "last": last}
 
 
 def print_timings(t: dict, card: str, steps: int) -> None:
@@ -851,7 +958,9 @@ def print_timings(t: dict, card: str, steps: int) -> None:
               + f"; {t['ops']:.0f} device kernels and copies a step, {host} host launch calls a step; top: "
               + "; ".join(f"{name[:48]} {ms:.3f} ms" for name, ms in t["top"][:3]))
         print(f"  copies a step, summed over the GPUs (profiler): Memcpy PtoP "
-              f"{t['copies_ms']['PtoP']:.3f} ms, Memcpy DtoD {t['copies_ms']['DtoD']:.3f} ms")
+              f"{t['copies_ms']['PtoP']:.3f} ms, Memcpy DtoD {t['copies_ms']['DtoD']:.3f} ms; "
+              "Memcpy PtoP per GPU (the stream that ran it): "
+              + ", ".join(f"cuda:{i} {ms:.3f}" for i, ms in t["copies_ms_by_gpu"]["PtoP"].items()))
 
 
 def _check_placement(sharded: dict, plan) -> None:
@@ -2030,6 +2139,8 @@ def trace_phase(dev, card: str) -> None:
           f"{size_mb:.1f} MB, {len(events)} events: {summary(events)}; hbm_read kernels {read}")
 
 
+#: the profiler's names of the copies between GPUs and within one
+COPY_KINDS = ("PtoP", "DtoD")
 #: the CUDA runtime and driver calls that put work on a stream: a host op
 LAUNCH_CALLS = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|GraphLaunch|Memcpy\w*Async|Memset\w*Async)")
 
@@ -2051,11 +2162,12 @@ def profile_steps(fn, n: int):
     copies' own time, the GPU-side ranges of annotations such as
     ``Optimizer.step`` left out; the kernels by device ms per call, largest
     first; device kernels and copies per call; host launch calls per call:
-    kernel launches, async copies and sets, graph launches) of ``n`` calls
-    of ``fn`` under torch.profiler; (None, [], 0, 0) when it records no
-    device time.  A busy share divides the device ms by a step time taken
-    without the profiler, whose own host cost would stretch a host-bound
-    step."""
+    kernel launches, async copies and sets, graph launches; each kind of
+    :data:`COPY_KINDS` by device ms per call of each GPU, that of the stream
+    that ran it) of ``n`` calls of ``fn`` under torch.profiler; (None, [],
+    0, 0, {}) when it records no device time.  A busy share divides the
+    device ms by a step time taken without the profiler, whose own host
+    cost would stretch a host-bound step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2070,15 +2182,21 @@ def profile_steps(fn, n: int):
                 and not getattr(e, "is_user_annotation", False))
 
     per_device: dict = {}
+    copies: dict = {kind: {} for kind in COPY_KINDS}
     for e in filter(on_device, prof.events()):
-        per_device[e.device_index] = per_device.get(e.device_index, 0.0) + e.self_device_time_total / n / 1e3
+        ms = e.self_device_time_total / n / 1e3
+        per_device[e.device_index] = per_device.get(e.device_index, 0.0) + ms
+        for kind, by_gpu in copies.items():
+            if f"Memcpy {kind}" in e.name:
+                by_gpu[e.device_index] = by_gpu.get(e.device_index, 0.0) + ms
     if not per_device:
-        return None, [], 0, 0
+        return None, [], 0, 0, {}
     averages = prof.key_averages()
     events = sorted(filter(on_device, averages), key=lambda e: -e.self_device_time_total)
     return (dict(sorted(per_device.items())), [(e.key, e.self_device_time_total / n / 1e3) for e in events],
             sum(e.count for e in events) / n,
-            sum(e.count for e in averages if LAUNCH_CALLS.match(e.key)) / n)
+            sum(e.count for e in averages if LAUNCH_CALLS.match(e.key)) / n,
+            {kind: {i: by_gpu.get(i, 0.0) for i in sorted(per_device)} for kind, by_gpu in copies.items()})
 
 
 def main() -> int:
@@ -2319,6 +2437,7 @@ def main() -> int:
     else:
         print("sharded step over distinct GPUs: NOT RUN (this machine has 1 GPU); only the "
               "one-card rehearsal ran")
+    vocab_parallel_phase([[dev] * n for n in (1, 2, 4, 8)], card)
     gradient_limit_phase(dev, card)
     sharded_counts = kernels.launch_counts()
     check(sharded_counts == {"hbm_read": 0, "hbm_copy": 0},

@@ -1,6 +1,7 @@
 """The group collectives of the port's SPMD train steps
-(tpudash_torch.parallel.collectives: psum_group, allreduce_replicas and the
-autograd pairs) on the CPU, over one device named 2, 4 and 8 times.
+(tpudash_torch.parallel.collectives: psum_group, pmax_group,
+allreduce_replicas, the autograd pairs and the vocab-parallel
+cross-entropy) on the CPU, over one device named 2, 4 and 8 times.
 
 The reference's collectives are XLA's ``lax.psum`` and the all-reduce that
 ``jax.jit`` inserts; what the port must keep of them is the sum itself.
@@ -9,10 +10,17 @@ Held here:
 - every slot's result bitwise equal to one device adding the parts in f32
   in list order and rounding once (the sharded step's rule, which its
   tests hold against the reference and the unsharded step);
+- every slot's maximum exactly the elementwise maximum, whatever the
+  order of the parts;
 - Megatron's f/g pair, the all-gather/slice pair and the replicated exit
   against the unsharded product in float64: ``torch.autograd.gradcheck``
   for the function of the shards, and the gradients of each shard and
-  replica against the unsharded ones within 1e-12.
+  replica against the unsharded ones within 1e-12;
+- ``vocab_parallel_nll`` against ``log_softmax`` and ``gather`` over the
+  joined logits: bitwise for one column; for 2, 4 and 8 in f32, each
+  token's loss and gradient within the rounding of a V-term sum,
+  2·V·2^-24 relative (the sharded step's own bound on the loss, rel 1e-4,
+  is far wider); ``gradcheck`` in float64.
 """
 
 import pytest
@@ -77,6 +85,19 @@ def test_psum_group_adds_in_list_order():
     one = torch.ones(5)
     assert torch.equal(C.psum_group([big, one, -big, one])[2], torch.ones(5))
     assert torch.equal(C.psum_group([big, -big, one, one])[1], torch.full((5,), 2.0))
+
+
+@pytest.mark.parametrize("n", GROUPS)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_pmax_group_is_the_exact_maximum_on_every_slot_whatever_the_order(n, shape, dtype):
+    parts = _parts(n, shape, dtype, seed=5)
+    want = torch.stack(parts).amax(0)
+    for order in (parts, parts[::-1]):
+        outs = C.pmax_group(order)
+        assert len(outs) == n
+        assert all(out.dtype == dtype and torch.equal(out, want) for out in outs)
+    assert len({t.data_ptr() for t in outs + parts}) == 2 * n
 
 
 def test_a_group_of_one_is_a_rounded_copy():
@@ -173,3 +194,57 @@ def test_a_replicated_exit_gives_every_replica_the_whole_gradient(n):
         assert torch.allclose(w.grad, full_u.grad, rtol=0, atol=1e-12)
         assert torch.equal(w.grad, us[0].grad)
     assert torch.allclose(torch.cat([w.grad for w in w1], 1), full_w1.grad, rtol=0, atol=1e-12)
+
+
+# --- the vocab-parallel cross-entropy against log_softmax and gather ------------------------
+
+NLL_V = 64
+
+
+def _nll_inputs(dtype=torch.float32, seed=6):
+    """(2, 5, NLL_V) logits at the scale of a trained model's, and targets
+    that reach every column's range and both ends of the vocabulary."""
+    rng = np.random.default_rng(seed)
+    logits = torch.from_numpy(rng.standard_normal((2, 5, NLL_V)) * 4.0).to(dtype)
+    targets = torch.from_numpy(rng.integers(0, NLL_V, (2, 5)))
+    targets[0, :2] = torch.tensor([0, NLL_V - 1])
+    return logits, targets
+
+
+def _nll_of_columns(n, logits, targets, g):
+    """Each column's loss and its shard's gradient when every column's
+    replica of the loss gets the gradient ``g``, as the sharded step's
+    ``one_of_replicas`` gives it."""
+    shards = [s.clone().requires_grad_(True) for s in logits.chunk(n, -1)]
+    outs = C.vocab_parallel_nll(shards, targets)
+    (C.one_of_replicas(outs) * g).sum().backward()
+    return outs, torch.cat([s.grad for s in shards], -1)
+
+
+@pytest.mark.parametrize("n", (1, *GROUPS))
+def test_vocab_parallel_nll_is_log_softmax_and_gather(n):
+    logits, targets = _nll_inputs()
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal((2, 5)).astype(np.float32))
+    full = logits.clone().requires_grad_(True)
+    want = -torch.log_softmax(full, -1).gather(-1, targets[..., None]).squeeze(-1)
+    (want * g).sum().backward()
+    outs, grad = _nll_of_columns(n, logits, targets, g)
+    assert len(outs) == n and all(torch.equal(o, outs[0]) for o in outs)
+    assert outs[0].dtype == torch.float32 and outs[0].shape == want.shape
+    if n == 1:  # the single-column path, bitwise
+        assert torch.equal(outs[0], want) and torch.equal(grad, full.grad)
+        return
+    tol = 2 * NLL_V * 2.0**-24
+    assert ((outs[0] - want).abs() <= tol * (1 + want.abs())).all()
+    assert ((grad - full.grad).abs() <= tol * g.abs()[..., None]).all()
+
+
+@pytest.mark.parametrize("n", GROUPS)
+def test_vocab_parallel_nll_passes_gradcheck_in_float64(n):
+    logits, targets = _nll_inputs(torch.float64)
+    shards = [s.clone().requires_grad_(True) for s in logits.chunk(n, -1)]
+
+    def fn(*xs):
+        return C.one_of_replicas(C.vocab_parallel_nll(xs, targets))
+
+    assert torch.autograd.gradcheck(fn, tuple(shards))

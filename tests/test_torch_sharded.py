@@ -16,6 +16,11 @@ Tolerances, as in tests/test_torch_workload.py:
 - parameters after one AdamW step: the per-tensor rule of
   test_every_parameter_after_one_adamw_step_matches_reference;
 - dp replicas: bitwise equal; shards and checkpoints: exact.
+
+The loss is vocab-parallel, as the reference's compiled program computes
+it: at dp 1 × tp 8 (the mesh of an eight-GPU host) it is held to the
+reference's at LOSS_RTOL too, and no tensor of the vocabulary's width is
+made in its forward or backward at tp ≥ 2.
 """
 
 import pytest
@@ -24,6 +29,7 @@ pytest.importorskip("torch")  # the port's own CI job installs it
 
 import math
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -102,6 +108,94 @@ def test_sharded_loss_matches_reference_and_the_unsharded_step(ref):
     plain = T.train_step(params, opt, torch.from_numpy(ref["tokens"]), ref["cfg"]).item()
     assert abs(loss - ref["loss"]) <= LOSS_RTOL * ref["loss"]
     assert abs(loss - plain) <= SELF_RTOL * plain
+
+
+@pytest.mark.parametrize("heads", [2, 4], ids=["2-heads", "4-heads"])
+def test_sharded_loss_at_dp1_tp8_matches_reference_and_the_unsharded_step(heads):
+    """The eight-GPU default mesh (mesh_axes_for(8)): every column holds an
+    eighth of the vocabulary, and the reference's compiled program reduces
+    only per-token scalars over them."""
+    jcfg, tcfg = _cfgs(heads)
+    jparams, opt_state = J.make_train_state(jax.random.PRNGKey(0), jcfg)
+    ref = {"cfg": tcfg, "params": jax.device_get(jparams), "tokens": _tokens(jcfg)}
+    step, shard_inputs = J.make_sharded_train_step(jmesh.build_mesh({"dp": 1, "tp": 8}), jcfg)
+    _, _, want = step(*shard_inputs(jparams, opt_state, jnp.asarray(ref["tokens"], jnp.int32)))
+    _, _, loss = _sharded_after_one_step(ref, dp=1, tp=8)
+    params, opt = _state(ref)
+    plain = T.train_step(params, opt, torch.from_numpy(ref["tokens"]), tcfg).item()
+    assert abs(loss - float(want)) <= LOSS_RTOL * float(want)
+    assert abs(loss - plain) <= SELF_RTOL * plain
+
+
+def _vocab_wide(cfg, tp):
+    """chip_smoke's recorder over the sharded loss's forward and backward
+    at dp 1 × ``tp``: every tensor of any dtype ``cfg.vocab`` wide."""
+    plan = T.shard_plan(_mesh(1, tp), cfg)
+    sharded = T.shard_params(T.init_params(cfg, torch.Generator().manual_seed(0)), plan)
+    for t in T.shard_leaves(sharded):
+        t.requires_grad_(True)
+    tokens = torch.from_numpy(_tokens(cfg))
+    found = chip_smoke.vocab_wide_tensors(
+        lambda: T.sharded_loss_fn(sharded, tokens, plan).backward(), cfg.vocab)
+    assert all(t.grad is not None for t in T.shard_leaves(sharded))
+    return found
+
+
+#: no other width of the model is 128, and 128 splits over tp 8
+WIDE_VOCAB = dict(SIZES, vocab=128)
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_the_sharded_loss_makes_no_tensor_of_the_vocabulary_width(tp):
+    assert _vocab_wide(T.WorkloadConfig(n_heads=2, **WIDE_VOCAB), tp) == []
+
+
+def test_the_recorder_sees_the_one_column_log_softmax_at_tp1():
+    """The control of the test above: at tp 1 the one column's logits and
+    its log_softmax are the vocabulary's width, forward and backward."""
+    ops = {op for op, _ in _vocab_wide(T.WorkloadConfig(n_heads=2, **WIDE_VOCAB), 1)}
+    assert any("_log_softmax.default" in op for op in ops)
+    assert any("_log_softmax_backward_data" in op for op in ops)
+
+
+def test_the_reference_program_reduces_only_per_token_scalars_for_its_loss():
+    """What the port's loss copies: the reference's compiled step at dp 1 ×
+    tp 4 holds no collective of the vocabulary's width, and its
+    log_softmax's max and sum are all-reduces of f32[B, T − 1]."""
+    import re
+
+    jcfg = J.WorkloadConfig(n_heads=2, **WIDE_VOCAB)
+    params, opt_state = J.make_train_state(jax.random.PRNGKey(0), jcfg)
+    step, shard_inputs = J.make_sharded_train_step(
+        jmesh.build_mesh({"dp": 1, "tp": 4}, jax.devices()[:4]), jcfg)
+    p, o, t = shard_inputs(params, opt_state, jnp.zeros((jcfg.batch, jcfg.seq), jnp.int32))
+    hlo = step.lower(p, o, t).compile().as_text()
+    ops = re.findall(r"= (\w+)\[([\d,]*)\]\S* (all-gather|all-reduce)(?:-start)?\((.*)", hlo)
+    assert ops and all(dims.split(",")[-1] != str(jcfg.vocab) for _, dims, _, _ in ops)
+    loss = [(dtype, dims, kind) for dtype, dims, kind, rest in ops if "log_softmax" in rest]
+    per_token = ("f32", f"{jcfg.batch},{jcfg.seq - 1}", "all-reduce")
+    assert sorted(loss) == [per_token, per_token]
+
+
+def test_at_tp1_the_loss_is_log_softmax_and_gather_of_the_one_column_bitwise():
+    """The single-column path as it was before the loss became
+    vocab-parallel: the row's logits, log_softmax, gather and the mean, its
+    loss and every gradient to the bit."""
+    cfg = _cfgs(4)[1]
+    plan = T.shard_plan(_mesh(1, 1), cfg)
+    tokens = torch.from_numpy(_tokens(cfg))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    grads = []
+    for loss_of in (lambda sh: T.sharded_loss_fn(sh, tokens, plan),
+                    lambda sh: -torch.log_softmax(T._row_logits(sh, tokens[:, :-1], plan, 0)[0], -1)
+                    .gather(-1, tokens[:, 1:, None]).squeeze(-1).mean()):
+        sharded = T.shard_params(params, plan)
+        for t in T.shard_leaves(sharded):
+            t.requires_grad_(True)
+        loss = loss_of(sharded)
+        loss.backward()
+        grads.append([loss.detach(), *(t.grad for t in T.shard_leaves(sharded))])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
 def _bf16_ulp(a):

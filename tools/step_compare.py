@@ -19,8 +19,9 @@ one.  For each path, at full width over every GPU (or over cuda:0 named
 - ``step_timings`` of the graphed step and of its ``.eager`` step (as
   PyTorch runs it, a backward thread a device) from a second state: step
   ms by the host clock, busy share and device ms per GPU, ``Memcpy PtoP``
-  and ``Memcpy DtoD`` ms a step summed over the GPUs, host launch calls a
-  step, peak memory above base.
+  and ``Memcpy DtoD`` ms a step summed over the GPUs (``copies_ms``) and
+  per GPU, that of the stream that ran the copy (``copies_ms_by_gpu``),
+  host launch calls a step, peak memory above base.
 
 Paths and their meshes, n the number of slots: ``sharded`` dp×tp as
 ``mesh_axes_for(n)`` splits n; ``ring`` dp×sp the same way; ``pipeline3d``
@@ -109,7 +110,8 @@ def measure(kind: str, devices: list, steps: int, cs) -> dict:
 
 
 def timings(t: dict) -> dict:
-    keep = ("step_ms", "event_ms", "issue_ms", "device_ms", "busy", "copies_ms", "ops", "host_ops")
+    keep = ("step_ms", "event_ms", "issue_ms", "device_ms", "busy", "copies_ms", "copies_ms_by_gpu",
+            "ops", "host_ops")
     return {**{k: t[k] for k in keep}, "top": t["top"][:16],
             "peak_above_base_gib": {d: b / 2**30 for d, b in t["peak_above_base"].items()}}
 

@@ -46,9 +46,11 @@ from tpudash_torch.parallel.collectives import (
     allreduce_replicas,
     copy_to_group,
     gather_from_group,
+    one_of_replicas,
     psum_group,
     reduce_from_group,
     scatter_to_group,
+    vocab_parallel_nll,
 )
 from tpudash_torch.parallel.mesh import Mesh
 
@@ -539,11 +541,11 @@ def _sharded_block(cfg, aligned, *tensors):
     return tuple(h + m for h, m in zip(hs, mlp))
 
 
-def _row_logits(sharded: dict, tokens: torch.Tensor, plan: ShardPlan, row: int) -> torch.Tensor:
-    """The forward of dp row ``row`` on its tokens → f32 logits on the row's
-    first device.  The embedding's column shards are all-gathered, so that
-    every column holds the residual stream; the vocab-parallel logits come
-    together for the loss."""
+def _row_logits(sharded: dict, tokens: torch.Tensor, plan: ShardPlan, row: int) -> tuple:
+    """The forward of dp row ``row`` on its tokens → each column's
+    vocab-parallel f32 logits on its own device.  The embedding's column
+    shards are all-gathered, so that every column holds the residual
+    stream."""
     xs = gather_from_group([e[tokens.to(e.device)] for e in sharded["embed"][row]], -1)
     b = sharded["blocks"]
     block = functools.partial(_sharded_block, plan.cfg, plan.heads_aligned)
@@ -553,23 +555,23 @@ def _row_logits(sharded: dict, tokens: torch.Tensor, plan: ShardPlan, row: int) 
     # cast each replica to f32 before "f", so that the columns' gradients
     # add up in f32 and round once
     xs = copy_to_group([_rmsnorm(x, s).float() for x, s in zip(xs, sharded["ln_f"][row])])
-    home = plan.device(row)
-    return torch.cat([torch.matmul(x, u.float()).to(home)
-                      for x, u in zip(xs, sharded["unembed"][row])], -1)
+    return tuple(torch.matmul(x, u.float()) for x, u in zip(xs, sharded["unembed"][row]))
 
 
 def sharded_loss_fn(sharded: dict, tokens: torch.Tensor, plan: ShardPlan) -> torch.Tensor:
-    """:func:`loss_fn` over the mesh: the batch splits over the dp rows, and
-    the loss, on the mesh's first device, is the mean of the rows' means
-    (equal shares, so the reference's mean over the whole batch)."""
+    """:func:`loss_fn` over the mesh: the batch splits over the dp rows;
+    each row's loss is its columns' vocab-parallel cross-entropy
+    (:func:`vocab_parallel_nll`), taken from its first column; the loss, on
+    the mesh's first device, is the mean of the rows' means (equal shares,
+    so the reference's mean over the whole batch)."""
     if tokens.shape[0] % plan.dp:
         raise ValueError(f"batch {tokens.shape[0]} does not split over the dp axis of size {plan.dp}")
     dev0 = plan.device(0)
     losses = []
     for r, rows in enumerate(tokens.chunk(plan.dp, 0)):
         rows = rows.to(plan.device(r))
-        logp = torch.log_softmax(_row_logits(sharded, rows[:, :-1], plan, r), dim=-1)
-        losses.append(-logp.gather(-1, rows[:, 1:, None]).squeeze(-1).mean().to(dev0))
+        nll = vocab_parallel_nll(_row_logits(sharded, rows[:, :-1], plan, r), rows[:, 1:])
+        losses.append(one_of_replicas([x.mean() for x in nll]).to(dev0))
     return torch.stack(losses).mean()
 
 

@@ -253,31 +253,31 @@ def _chunks(t: torch.Tensor, n: int) -> tuple:
     return t.reshape(-1).tensor_split(n)
 
 
-def psum_group(parts: Sequence[torch.Tensor], dtype: "torch.dtype | None" = None) -> list:
-    """The sum of ``parts``, one tensor of one shape per slot of a group
-    (a device may fill several slots), on every slot's device: added in f32
-    (in the parts' own dtype where that is wider) in the order of ``parts``
-    and rounded once to ``dtype`` (default: the parts' dtype).  Every slot
-    gets a tensor of its own, and all of them hold the same bits.
+def _allreduce_group(parts: Sequence[torch.Tensor], combine, acc_dtype: torch.dtype,
+                     out_dtype: torch.dtype) -> list:
+    """``combine`` over ``parts``, one tensor of one shape per slot of a
+    group (a device may fill several slots), on every slot's device:
+    folded in ``acc_dtype`` in the order of ``parts`` and rounded once to
+    ``out_dtype``.  Every slot gets a tensor of its own, and all of them
+    hold the same bits.
 
-    A reduce-scatter, then an all-gather: slot j adds chunk j of every part
+    A reduce-scatter, then an all-gather: slot j folds chunk j of every part
     in list order and rounds it, then every slot gathers the rounded
-    chunks.  The sum is elementwise, so the chunking changes no bit: the
-    result is that of one device adding the whole parts in list order.
+    chunks.  ``combine`` is elementwise, so the chunking changes no bit: the
+    result is that of one device folding the whole parts in list order.
     Round r of each phase sends from every slot k to slot k + r, so that
     no two copies of a round leave or enter one slot.  A copy runs on its
     source slot's side stream (:func:`_side_streams`, which waits for the
     slot's current stream, where its part was made); PyTorch's rule for a
     copy between devices orders it after the destination's current stream
-    and that stream after it, so each chunk sum waits for every peer's
-    chunk and each gathered chunk for its sum.  The current streams wait for
-    the side streams before this returns.  Within a CUDA graph's capture the
-    side streams join the capture, as the graph's own do.  On one device
-    named several times the copies are local and the result is the same.
+    and that stream after it, so each chunk's fold waits for every peer's
+    chunk and each gathered chunk for its fold.  The current streams wait
+    for the side streams before this returns.  Within a CUDA graph's
+    capture the side streams join the capture, as the graph's own do.  On
+    one device named several times the copies are local and the result is
+    the same.
     """
     n = len(parts)
-    out_dtype = dtype or parts[0].dtype
-    acc_dtype = torch.promote_types(parts[0].dtype, torch.float32)
     devices = [p.device for p in parts]
     chunks = [_chunks(p, n) for p in parts]
     outs = [torch.empty(parts[0].shape, dtype=out_dtype, device=d) for d in devices]
@@ -294,7 +294,7 @@ def psum_group(parts: Sequence[torch.Tensor], dtype: "torch.dtype | None" = None
     for j in range(n):
         acc = got[j][0].to(acc_dtype)
         for k in range(1, n):
-            acc = acc + got[j][k].to(acc_dtype)
+            acc = combine(acc, got[j][k].to(acc_dtype))
         out_chunks[j][j].copy_(acc)  # the one rounding
     for d, s in zip(devices, streams):
         if s is not None:
@@ -308,6 +308,22 @@ def psum_group(parts: Sequence[torch.Tensor], dtype: "torch.dtype | None" = None
         if s is not None:
             torch.cuda.current_stream(d).wait_stream(s)
     return outs
+
+
+def psum_group(parts: Sequence[torch.Tensor], dtype: "torch.dtype | None" = None) -> list:
+    """The sum of ``parts`` on every slot's device (:func:`_allreduce_group`):
+    added in f32 (in the parts' own dtype where that is wider) in the order
+    of ``parts`` and rounded once to ``dtype`` (default: the parts'
+    dtype)."""
+    return _allreduce_group(parts, torch.add, torch.promote_types(parts[0].dtype, torch.float32),
+                            dtype or parts[0].dtype)
+
+
+def pmax_group(parts: Sequence[torch.Tensor]) -> list:
+    """The elementwise maximum of ``parts`` on every slot's device
+    (:func:`_allreduce_group`), in their own dtype: exact, so the same
+    whatever the order."""
+    return _allreduce_group(parts, torch.maximum, parts[0].dtype, parts[0].dtype)
 
 
 def allreduce_replicas(tensors: Sequence[torch.Tensor]) -> list:
@@ -394,6 +410,48 @@ class _OneOfReplicas(torch.autograd.Function):
         return tuple(g.to(d, copy=True) for d in ctx.devices)
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """Each token's cross-entropy from a group's vocab-parallel logits, as
+    the reference's compiled program computes it: every column keeps its
+    (…, V/n) shard, and only per-token scalars cross the group (an
+    all-reduce of the maxima, one of the sums of exponentials and the
+    target's logit).  Backward is local to each column: softmax minus the
+    one-hot target, times the token's gradient."""
+
+    @staticmethod
+    def forward(ctx, targets, *logits):
+        width = logits[0].shape[-1]
+        maxes = pmax_group([x.amax(-1) for x in logits])
+        exps, parts, picks = [], [], []
+        for c, (x, m) in enumerate(zip(logits, maxes)):
+            local = targets.to(x.device) - c * width  # the target within column c's range
+            hit = (local >= 0) & (local < width)
+            idx = local.clamp(0, width - 1).unsqueeze(-1)
+            e = torch.exp(x - m.unsqueeze(-1))
+            # the target's logit from the one column that holds it, 0 from
+            # the others: its sum over the group is exact
+            target = torch.where(hit, x.gather(-1, idx).squeeze(-1), 0.0)
+            parts.append(torch.stack([e.sum(-1), target]))
+            exps.append(e)
+            picks += [idx, hit]
+        sums = psum_group(parts)  # the sums of exponentials and the target's logit, column order
+        ctx.save_for_backward(*exps, *(s[0] for s in sums), *picks)
+        # log_softmax's rounding points: (x_t − M) − log S
+        return tuple(torch.log(s[0]) - (s[1] - m) for s, m in zip(sums, maxes))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n = len(gs)
+        saved = ctx.saved_tensors
+        exps, sums, picks = saved[:n], saved[n:2 * n], saved[2 * n:]
+        grads = []
+        for e, s, idx, hit, g in zip(exps, sums, picks[::2], picks[1::2], gs):
+            p = e / s.unsqueeze(-1)
+            p.scatter_add_(-1, idx, -hit.unsqueeze(-1).to(p.dtype))  # − the one-hot target
+            grads.append(p.mul_(g.unsqueeze(-1)))
+        return (None, *grads)
+
+
 # Every slot of a tp group holds a replica of the activations and receives
 # the whole gradient of its replica, Megatron's convention: a replicated
 # leaf's gradient comes out the same on every slot and is never summed over
@@ -429,3 +487,19 @@ def one_of_replicas(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     """The value every replica holds (a copy of the first, on its device);
     each replica's gradient is the whole one."""
     return _OneOfReplicas.apply(*xs)
+
+
+def vocab_parallel_nll(logit_shards: Sequence[torch.Tensor], targets: torch.Tensor) -> tuple:
+    """Each token's negative log-likelihood over a tp group whose column c
+    holds ``logit_shards[c]``, the (…, V/n) logits of vocabulary entries
+    [c·V/n, (c+1)·V/n), on its device; ``targets`` (…) are vocabulary ids on
+    any device.  Returns every column's copy, all of them the same bits:
+    log S − (x_target − M), with M the group's maximum (:func:`pmax_group`)
+    and S the sum of exp(x − M), added in each column, then over the
+    columns in column order (:func:`psum_group`).  No tensor of the whole
+    vocabulary's width is made, forward or backward.  One column is
+    ``-log_softmax(x).gather(targets)``, bitwise."""
+    if len(logit_shards) == 1:
+        (x,) = logit_shards
+        return (-torch.log_softmax(x, -1).gather(-1, targets.to(x.device).unsqueeze(-1)).squeeze(-1),)
+    return _VocabParallelNLL.apply(targets, *logit_shards)
