@@ -10,6 +10,15 @@ From the root of a checkout, on a host with one H100:
    source, started together) and prints the build time;
 3. holds each kernel against its plain PyTorch version on the card, the
    copy kernel exactly at the edges of its launch plan;
+3d. holds the norm's kernels (csrc/rmsnorm.cu) against autograd of their
+   plain version at the tp step's (16·511, 1024), at every width the port
+   runs on the card and at their plan's edges: y and dx within a bf16 ulp
+   (dx plus the f32 noise of its cancelling terms), dscale within 1e-5 and
+   the same bits twice; the autograd function bitwise its kernels, eager and
+   in a CUDA graph; the launches of the first call of the dp 1 × tp 4 step
+   over the card named four times (and over every GPU when there are
+   several): 33 forward and 17 backward a device a step; their times beside
+   the plain chain, F.rms_norm and the bound of their bytes;
 3a. loads the kernels as the exporter image does, with no compiler: a fresh
    process with nvcc off PATH and CUDA_HOME=/nonexistent loads phase 2's
    libraries, launches both and matches their plain versions; the same
@@ -1660,12 +1669,20 @@ err = (got - kernels.hbm_read_pass_ref(x, prev)).abs()
 depth = br + -(-rows // br) + 1
 tol = 2 * depth * 2.0**-24 * (prev.abs() + x.abs().sum(0, keepdim=True))
 copied = kernels.hbm_copy(x, torch.empty_like(x))
+h = torch.randn((16 * 511, 1024), generator=g, device=dev).bfloat16()
+scale = torch.ones(1024, device=dev)
+y = kernels.rmsnorm_forward(h, scale)
+dh, dscale = kernels.rmsnorm_backward(h, scale, h)
+y_ref = kernels.rmsnorm_ref(h, scale).float()
+ulp = torch.pow(2.0, torch.floor(torch.log2(y_ref.abs().clamp_min(2.0**-126))) - 7)
 torch.cuda.synchronize()
 print(json.dumps({
     "nvcc": nvcc, "load_s": took, "libraries": [str(k.library_path) for k in kernels.KERNELS],
     "launches": kernels.launch_counts(), "read_err": err.max().item(),
     "read_ok": bool(torch.isfinite(got).all() and (err <= tol).all()),
     "copy_exact": torch.equal(copied, kernels.copy_ref(x)),
+    "norm_ok": bool(((y.float() - y_ref).abs() <= ulp).all() and torch.isfinite(dscale).all()
+                    and torch.isfinite(dh.float()).all()),
 }))
 """
 
@@ -1702,7 +1719,9 @@ def check_kernel_child(what: str, rc: int, out: list, err: str, tree: Path) -> d
     check(got["nvcc"] is None, f"{what}: nvcc was reachable")
     check(all(inside(lib, tree) for lib in got["libraries"]),
           f"{what}: libraries {got['libraries']} outside {tree}")
-    check(got["launches"] == {"hbm_read": 1, "hbm_copy": 1}, f"{what}: launches {got['launches']}")
+    check(got["launches"] == {"hbm_read": 1, "hbm_copy": 1, "rmsnorm_fwd": 1, "rmsnorm_bwd": 1},
+          f"{what}: launches {got['launches']}")
+    check(got["norm_ok"], f"{what}: the norm's forward off its plain version")
     check(got["read_ok"], f"{what}: hbm_read max err {got['read_err']:.3e} above its tolerance")
     check(got["copy_exact"], f"{what}: hbm_copy not exact")
     return got
@@ -1797,6 +1816,8 @@ def image_build_phase(card: str, shape: tuple, tmp: Path) -> Path:
     script runs there under ``python -P`` with CUDA_VISIBLE_DEVICES="".  Then
     a process with no compiler loads what it built, as the runtime stage
     does.  Returns the venv."""
+    from tpudash_torch.ops import kernels
+
     t0 = time.perf_counter()
     script, sources = dockerfile_build_script()
     pins = lock_pins(ROOT / "deploy" / "torch" / "requirements.lock")
@@ -1823,7 +1844,9 @@ def image_build_phase(card: str, shape: tuple, tmp: Path) -> Path:
     check(r.returncode == 0,
           f"the Dockerfile's build script: exit {r.returncode}\n{r.stdout}{r.stderr[-3000:]}")
     libs = sorted((purelib / "tpudash_torch" / "ops" / "build").glob("*.so"))
-    check(len(libs) == 2, f"the build script left {[lib.name for lib in libs]}")
+    stems = {k.source.stem for k in kernels.KERNELS}
+    check(len(libs) == len(stems) and {lib.name.rsplit("-", 1)[0][3:] for lib in libs} == stems,
+          f"the build script left {[lib.name for lib in libs]}, not one library of each of {stems}")
     needed = {lib.name: readelf_needed(str(lib)) for lib in libs}
     check(not any("libcuda.so" in n for v in needed.values() if v for n in v),
           f"a kernel library needs the driver at load time: {needed}")
@@ -2199,6 +2222,262 @@ def profile_steps(fn, n: int):
             {kind: {i: by_gpu.get(i, 0.0) for i in sorted(per_device)} for kind, by_gpu in copies.items()})
 
 
+#: the norm's widths on the card: the workload's defaults (and the MoE's and
+#: pipeline's at them), the dry run's, WorkloadConfig's default; then the
+#: edges of the kernels' plan (a team of 1, 2, 4 and 8 warps, ragged vectors)
+NORM_WIDTHS = (1024, 64, 256)
+NORM_EDGE_WIDTHS = (8, 24, 1000, 1032, 2048, 2056, 4104, 8192)
+#: the norm's dscale against autograd of the plain forward: max |a − b| over
+#: max |b|.  The two add the same f32 terms in other orders.
+NORM_DSCALE_RTOL = 1e-5
+
+
+def trains_norms_only(counts: dict) -> bool:
+    """A training path's launches: the norm's kernels, forward and
+    backward, and no probe kernel."""
+    return (counts["hbm_read"] == counts["hbm_copy"] == 0
+            and counts["rmsnorm_fwd"] > 0 and counts["rmsnorm_bwd"] > 0)
+
+
+def norm_plain_grads(x, scale, g) -> tuple:
+    """Autograd of the norm's plain forward: (y, dx, dscale)."""
+    import torch
+
+    from tpudash_torch.ops import kernels
+
+    xr = x.detach().clone().requires_grad_(True)
+    sr = scale.detach().clone().requires_grad_(True)
+    y = kernels.rmsnorm_ref(xr, sr)
+    dx, ds = torch.autograd.grad(y, (xr, sr), g)
+    return y, dx, ds
+
+
+def norm_check(x, scale, g, label: str) -> dict:
+    """The norm kernels against autograd of the plain forward on (x, scale,
+    g): y within one bf16 ulp of the plain value; dx within one ulp plus
+    the f32 noise of its two terms, r·g·s and r·x̂·mean, which cancel where
+    dx is small (8 f32 units of each, and of mean's sum over the row in any
+    order, d·2^-24·Σ|g·s·x̂|/d, once for each of the two computations);
+    dscale within NORM_DSCALE_RTOL; a second backward gives the same bits."""
+    import torch
+
+    from tpudash_torch.ops import kernels
+
+    y = kernels.rmsnorm_forward(x, scale)
+    dx, ds = kernels.rmsnorm_backward(x, scale, g)
+    dx2, ds2 = kernels.rmsnorm_backward(x, scale, g)
+    y_p, dx_p, ds_p = norm_plain_grads(x, scale, g)
+    torch.cuda.synchronize()
+    x32, g32 = x.float(), g.float()
+    r = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + kernels.NORM_EPS)
+    xh = x32 * r
+    gs = g32 * scale
+    mean = (gs * xh).sum(-1, keepdim=True) / x.shape[-1]
+    terms = (gs * xh).abs().sum(-1, keepdim=True)
+    noise = F32_U * r * (8 * gs.abs() + xh.abs() * (8 * mean.abs() + 2 * terms))
+    y_err = ((y.float() - y_p.float()).abs() / _ulp_bf16(y_p.float())).max().item()
+    dx_tol = _ulp_bf16(dx_p.float()) + noise
+    dx_err = ((dx.float() - dx_p.float()).abs() / dx_tol).max().item()
+    dx_ulps = ((dx.float() - dx_p.float()).abs() / _ulp_bf16(dx_p.float())).max().item()
+    ds_err = ((ds - ds_p).abs().max() / ds_p.abs().max()).item()
+    check(bool(torch.isfinite(y.float()).all() and torch.isfinite(dx.float()).all()
+               and torch.isfinite(ds).all()), f"norm {label}: non-finite output")
+    check(y_err <= 1.0, f"norm {label}: y {y_err:.3f} bf16 ulps from the plain version")
+    check(dx_err <= 1.0, f"norm {label}: dx {dx_err:.3f} of its tolerance from the plain version")
+    check(ds_err <= NORM_DSCALE_RTOL, f"norm {label}: dscale relative error {ds_err:.3e}")
+    check(torch.equal(ds, ds2) and torch.equal(dx, dx2), f"norm {label}: two backwards differ")
+    return {"y_ulps": y_err, "dx_ulps": dx_ulps, "dx_of_tol": dx_err, "dscale_rel": ds_err}
+
+
+def norm_counts(devices: list, gen_seed: int = SEED) -> dict:
+    """launch_counts() over the first call of the compiled dp 1 × tp n step
+    at the workload's defaults on ``devices`` (its two eager warm-up steps
+    and its capture), then over one replay; with the expected counts a
+    device a step: 4·L + 1 forward (each block's two norms, again in the
+    recompute, and ln_f), 2·L + 1 backward."""
+    import torch
+
+    from tpudash_torch.models import graphed
+    from tpudash_torch.models import workload as W
+    from tpudash_torch.ops import kernels
+    from tpudash_torch.parallel.mesh import build_mesh
+
+    cfg = W.WorkloadConfig(**WORKLOAD_DEFAULTS)
+    n = len(devices)
+    mesh = build_mesh({"dp": 1, "tp": n}, devices)
+    gen_t = torch.Generator(device=devices[0]).manual_seed(gen_seed)
+    params = W.init_params(cfg, gen_t)
+    tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=gen_t, device=devices[0])
+    step, shard_inputs = W.make_sharded_train_step(mesh, cfg)
+    state, opt = shard_inputs(params, None)
+    kernels.reset_launch_counts()
+    step(state, opt, tokens)
+    first = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    step(state, opt, tokens)
+    torch.cuda.synchronize()
+    replay = kernels.launch_counts()
+    steps = graphed.WARMUP_STEPS + 1
+    want = {"rmsnorm_fwd": 4 * cfg.n_layers + 1, "rmsnorm_bwd": 2 * cfg.n_layers + 1}
+    got = {k: first[k] / (steps * n) for k in want}
+    check(got == want, f"norm launches a device a step over the first call {got}, want {want} "
+          f"(counts {first} over {steps} steps on {n} devices)")
+    check(all(v == 0 for v in replay.values()), f"a replay launched from the host: {replay}")
+    del state, opt, step
+    return {"per_device_step": got, "first_call": first, "replay": replay, "devices": n}
+
+
+def norm_phase(devices: list, card: str, gen, label: str, timing: bool = True) -> dict:
+    """The norm kernels on ``devices[0]`` against autograd of the plain
+    forward at the tp step's (16·511, 1024), at every other width the port
+    runs on the card and at the plan's edges; the autograd function
+    against the wrappers and, captured in a CUDA graph, against eager; the
+    launches of one capture of the dp 1 × tp n step over ``devices``; with
+    ``timing``, each kernel's time beside the plain chain, the library's
+    ``torch.nn.functional.rms_norm`` (a yardstick: the port never calls it)
+    and the bound of the bytes it must move."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudash_torch.ops import kernels
+
+    dev = devices[0]
+    rng = torch.Generator(device=dev).manual_seed(SEED + 16)
+
+    def inputs(rows: int, d: int, scale_ones: bool = False) -> tuple:
+        x = torch.randn((rows, d), generator=rng, device=dev).bfloat16()
+        s = (torch.ones(d, device=dev) if scale_ones
+             else 1 + 0.1 * torch.randn(d, generator=rng, device=dev))
+        g = torch.randn((rows, d), generator=rng, device=dev).bfloat16()
+        return x, s, g
+
+    rows = 16 * 511
+    results = {}
+    for d in NORM_WIDTHS:
+        results[f"{rows}x{d}"] = norm_check(*inputs(rows, d), f"({rows}, {d})")
+    results[f"{rows}x1024 ones"] = norm_check(*inputs(rows, 1024, True), f"({rows}, 1024) ones")
+    for r, d in [(1, 1024), (7, 1024), (3000, 1024)] + [(1000, d) for d in NORM_EDGE_WIDTHS]:
+        results[f"{r}x{d}"] = norm_check(*inputs(r, d), f"({r}, {d})")
+    # the autograd function on a 3-D x, against the wrappers, eager and graphed
+    x, s, g = inputs(rows, 1024)
+    x3, g3 = x.view(16, 511, 1024), g.view(16, 511, 1024)
+    xr, sr = x3.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    y = kernels.rmsnorm(xr, sr)
+    y.backward(g3)
+    want_y = kernels.rmsnorm_forward(x3, s)
+    want_dx, want_ds = kernels.rmsnorm_backward(x3, s, g3)
+    check(torch.equal(y, want_y) and torch.equal(xr.grad, want_dx) and torch.equal(sr.grad, want_ds),
+          "norm: the autograd function differs from its kernels")
+    del xr, sr, y
+    # captured as a whole network is: fresh leaves, warmed up on a side
+    # stream, then one capture of forward and backward
+    xg, sg = x3.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            torch.autograd.grad(kernels.rmsnorm(xg, sg), (xg, sg), g3)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        yg = kernels.rmsnorm(xg, sg)
+        dxg, dsg = torch.autograd.grad(yg, (xg, sg), g3)
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(yg, want_y) and torch.equal(dxg, want_dx) and torch.equal(dsg, want_ds),
+          "norm: the graphed function differs from eager")
+    del graph, xg, sg, yg, dxg, dsg
+    worst = {k: max(v[k] for v in results.values())
+             for k in ("y_ulps", "dx_ulps", "dx_of_tol", "dscale_rel")}
+    print(f"norm kernels vs autograd of the plain forward ({label}) [{card}]: "
+          f"{len(results)} shapes, widths {sorted({int(k.split('x')[1].split()[0]) for k in results})}; "
+          f"worst y {worst['y_ulps']:.3f} ulp, dx {worst['dx_ulps']:.3f} ulp "
+          f"({worst['dx_of_tol']:.3f} of its tolerance), dscale rel {worst['dscale_rel']:.3e}; "
+          "two backwards bitwise equal; the autograd function bitwise its kernels, eager and graphed")
+    out = {"checks": results, "worst": worst}
+    # a launch on another GPU leaves the caller's current device as it was
+    # (the kernels' library runs its own CUDA runtime on the same context)
+    for other in dict.fromkeys(devices):
+        with torch.cuda.device(dev):
+            xo = torch.ones((16, 64), device=other, dtype=torch.bfloat16)
+            so = torch.ones(64, device=other)
+            kernels.rmsnorm_backward(xo, so, kernels.rmsnorm_forward(xo, so))
+            check(torch.cuda.current_device() == dev.index,
+                  f"norm on {other} left the current device at {torch.cuda.current_device()}")
+    out["counts"] = counts = norm_counts(devices)
+    print(f"norm launches over the first call of the dp 1 x tp {counts['devices']} step ({label}): "
+          f"{counts['first_call']}, a device a step {counts['per_device_step']}; a replay "
+          f"{counts['replay']}")
+    if not timing:
+        return out
+    d = 1024
+    x, s, g = inputs(rows, d)
+    s16 = s.bfloat16()
+    xp, sp = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    yp = kernels.rmsnorm_ref(xp, sp)
+    xl, sl = x.clone().requires_grad_(True), s16.clone().requires_grad_(True)
+    yl = F.rms_norm(xl, (d,), sl, kernels.NORM_EPS)
+    fns = {
+        "forward": {"kernel": lambda: kernels.rmsnorm_forward(x, s),
+                    "plain": lambda: kernels.rmsnorm_ref(x, s),
+                    "library": lambda: F.rms_norm(x, (d,), s16, kernels.NORM_EPS)},
+        "backward": {"kernel": lambda: kernels.rmsnorm_backward(x, s, g),
+                     "plain": lambda: torch.autograd.grad(yp, (xp, sp), g, retain_graph=True),
+                     "library": lambda: torch.autograd.grad(yl, (xl, sl), g, retain_graph=True)},
+    }
+    hbm = gen.hbm_gbps * 1e9
+    nbytes = {"forward": 2 * 2 * rows * d + 4 * d, "backward": 3 * 2 * rows * d + 2 * 4 * d}
+    # L2 (50 MB) emptied of x and g before each call by a read of 256 MiB
+    flush = torch.ones(64 * 2**20, device=dev)
+    flush_ms = graph_ms(lambda: flush.sum(), dev)
+    out["timing"] = {"shape": [rows, d]}
+    for side, f in fns.items():
+        kernel = f["kernel"]
+        t = {f"{k}_device": device_ms(fn) for k, fn in f.items()}
+        t.update({f"{k}_events": v for k, v in cuda_ms(dict(f)).items()})
+        t["kernel_graph"] = graph_ms(kernel, dev)
+        t["kernel_cold"] = graph_ms(lambda kernel=kernel: (flush.sum(), kernel()), dev) - flush_ms
+        t["bound_ms"] = nbytes[side] / hbm * 1e3
+        out["timing"][side] = t
+        print(f"norm {side} at ({rows}, {d}) bf16 [{card}]: kernel {t['kernel_graph'] * 1e3:.2f} us "
+              f"a call in a CUDA graph, {t['kernel_cold'] * 1e3:.2f} us with L2 emptied before each "
+              f"(bound {t['bound_ms'] * 1e3:.2f} us of bytes: {100 * t['bound_ms'] / t['kernel_cold']:.2f} "
+              f"% of it cold); device time (profiler): kernel {t['kernel_device'] * 1e3:.2f} us, plain "
+              f"{t['plain_device'] * 1e3:.2f} us, library (F.rms_norm, bf16 scale) "
+              f"{t['library_device'] * 1e3:.2f} us; events a call (host-paced): kernel "
+              f"{t['kernel_events'] * 1e3:.2f}, plain {t['plain_events'] * 1e3:.2f}, library "
+              f"{t['library_events'] * 1e3:.2f} us")
+    return out
+
+
+def graph_ms(fn, dev, n: int = 20, reps: int = 9) -> float:
+    """Median ms a call of ``fn`` with ``n`` calls captured in one CUDA graph
+    and replayed: device time without the host's launch cost."""
+    import torch
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
 def main() -> int:
     if not (ROOT / "tpudash_torch" / "ops" / "csrc").is_dir():
         print(f"chip_smoke: no tpudash_torch/ beside {__file__}: run it from a "
@@ -2230,10 +2509,13 @@ def main() -> int:
     # -- 2. build --------------------------------------------------------------
     build_s = kernels.build_kernels()
     print(f"build: {build_s:.2f} s for {len(kernels.KERNELS)} kernels (parallel nvcc, sm_90a)")
-    for k in kernels.KERNELS:
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {k.name}: {line.strip()}")
+    for path in dict.fromkeys(k.library_path for k in kernels.KERNELS):
+        names = [k.name for k in kernels.KERNELS if k.library_path == path]
+        log = next(k.build_log for k in kernels.KERNELS if k.library_path == path)
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", log))
+        print(f"  {'/'.join(names)}: {len(regs)} entry functions, at most "
+              f"{max(regs, default=0)} registers a thread, {spills} bytes spilled")
 
     # -- 3. each kernel against its plain version on the card -------------------
     gen_rng = torch.Generator(device=dev).manual_seed(SEED)
@@ -2321,6 +2603,9 @@ def main() -> int:
           f"tol {tol_mm:.3f}")
     del xm, wm, chain
 
+    # -- 3d. the norm kernels, and their launches in one capture of the tp 4 step --
+    norm = norm_phase([dev] * 4, card, gen, "one card; the tp 4 step over the card named four times")
+
     # -- 3a-3c. the exporter as deployed: prebuilt kernels with no compiler, the
     # image's build stage with no GPU, the DaemonSet's command --------------------
     with tempfile.TemporaryDirectory(prefix="tpudash-deploy-") as tmp:
@@ -2396,7 +2681,8 @@ def main() -> int:
     for label, r in (("read", hbm), ("copy", cp)):
         check(0 < r.value <= MAX_SHARE_OF_PEAK * gen.hbm_gbps,
               f"{label} bandwidth {r.value} GB/s vs peak {gen.hbm_gbps}")
-    check(bench_counts == {"hbm_read": (10 + 410) * 6, "hbm_copy": (5 + 205) * 6},
+    check(bench_counts == {"hbm_read": (10 + 410) * 6, "hbm_copy": (5 + 205) * 6,
+                           "rmsnorm_fwd": 0, "rmsnorm_bwd": 0},
           f"bench launches {bench_counts}")
     print(f"probe bench path [{card}]: matmul 4096/64 {mm.value:.2f} TFLOP/s "
           f"({100 * mm.value / gen.peak_bf16_tflops:.2f} % of peak); read 256 MiB k1=10 k2=410 "
@@ -2422,10 +2708,8 @@ def main() -> int:
     kernels.reset_launch_counts()
     training_phase(dev, card, gen)
     train_counts = kernels.launch_counts()
-    check(train_counts == {"hbm_read": 0, "hbm_copy": 0},
-          f"training path launched a probe kernel: {train_counts}")
-    print(f"training path: launches {train_counts} (it runs no hand-written kernel, as "
-          "the reference runs no Pallas kernel)")
+    check(trains_norms_only(train_counts), f"training path launches {train_counts}")
+    print(f"training path: launches {train_counts} (no probe kernel; the norm's kernels)")
 
     # -- 7b. the dp×tp sharded step, its source and exporter ------------------------
     every_gpu = [torch.device("cuda", i) for i in range(n_gpus)]
@@ -2437,11 +2721,12 @@ def main() -> int:
     else:
         print("sharded step over distinct GPUs: NOT RUN (this machine has 1 GPU); only the "
               "one-card rehearsal ran")
+    if n_gpus > 1:
+        norm_phase(every_gpu, card, gen, f"{n_gpus} distinct GPUs", timing=False)
     vocab_parallel_phase([[dev] * n for n in (1, 2, 4, 8)], card)
     gradient_limit_phase(dev, card)
     sharded_counts = kernels.launch_counts()
-    check(sharded_counts == {"hbm_read": 0, "hbm_copy": 0},
-          f"sharded path launched a probe kernel: {sharded_counts}")
+    check(trains_norms_only(sharded_counts), f"sharded path launches {sharded_counts}")
     print(f"sharded path: launches {sharded_counts}")
 
     # -- 7c. ring attention over an sp ring and its train step -------------------------
@@ -2452,23 +2737,24 @@ def main() -> int:
     else:
         print("ring attention over distinct GPUs: NOT RUN (this machine has 1 GPU)")
     ring_counts = kernels.launch_counts()
-    check(ring_counts == {"hbm_read": 0, "hbm_copy": 0},
-          f"ring path launched a probe kernel: {ring_counts}")
+    check(trains_norms_only(ring_counts), f"ring path launches {ring_counts}")
     print(f"ring path: launches {ring_counts}")
 
     # -- 7d. the pipeline, 3D and MoE steps and the dry run --------------------------
     new_counts = {}
 
-    def counted(path: str, run, reads: bool = False) -> None:
+    def counted(path: str, run, reads: bool = False, trains: bool = True) -> None:
         """Run a path between a reset and a read of the launch counts: the
         copy kernel launches on none of these paths, the read kernel on
-        those that run the probe source (``reads``) only."""
+        those that run the probe source (``reads``) only, the norm's on
+        those that train (``trains``)."""
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         run()
         took = time.perf_counter() - t0
         c = new_counts[path] = kernels.launch_counts()
-        check(c["hbm_copy"] == 0 and (c["hbm_read"] > 0) == reads,
+        norms = c["rmsnorm_fwd"] > 0 and c["rmsnorm_bwd"] > 0
+        check(c["hbm_copy"] == 0 and (c["hbm_read"] > 0) == reads and (not trains or norms),
               f"{path} path launches {c}")
         print(f"{path} path: launches {c}; {took:.1f} s")
 
@@ -2501,8 +2787,8 @@ def main() -> int:
               "one-card rehearsals ran")
 
     # -- 7e. the anomaly scorer, the demo and the device trace ------------------------
-    counted("anomaly", lambda: anomaly_phase(every_gpu, card))
-    counted("demo", lambda: demo_phase(card), reads=True)
+    counted("anomaly", lambda: anomaly_phase(every_gpu, card), trains=False)
+    counted("demo", lambda: demo_phase(card), reads=True, trains=False)
     counted("trace", lambda: trace_phase(dev, card), reads=True)
 
     # -- 7f. the train step as one CUDA graph -------------------------------------------
@@ -2577,10 +2863,34 @@ def main() -> int:
                               "sharded": sharded_counts["hbm_copy"], "ring": ring_counts["hbm_copy"],
                               **{path: c["hbm_copy"] for path, c in new_counts.items()}}},
     ]
+    paths = {"exporter": main_counts, "bench": bench_counts, "inter_gpu": ici_counts,
+             "training": train_counts, "sharded": sharded_counts, "ring": ring_counts, **new_counts}
+    for name, side in (("rmsnorm_fwd", "forward"), ("rmsnorm_bwd", "backward")):
+        t = norm["timing"][side]
+        entries.append({
+            "name": name, "route": "cuda", "source": "tpudash_torch/ops/csrc/rmsnorm.cu",
+            "replaces": "none (tpudash/models/workload.py:97 _rmsnorm, XLA-fused)",
+            "launches": norm["counts"]["first_call"][name],
+            "max_abs_err": None, "worst": norm["worst"], "ms": t["kernel_cold"],
+            "graph_ms": t["kernel_graph"], "device_ms_hot": t["kernel_device"],
+            "plain_ms": t["plain_device"], "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": t["library_device"],
+            "path": f"tp {norm['counts']['devices']} train step, {side}",
+            "shape": norm["timing"]["shape"],
+            "per_device_step": norm["counts"]["per_device_step"][name],
+            "launches_by_path": {path: c[name] for path, c in paths.items()}})
+
     def us(v):
         return "not measured" if v is None else f"{v * 1e3:.2f} us"
 
     for e in entries:
+        if "device_ms" not in e:
+            print(f"{e['name']} at {e['shape']} bf16 [{card}]: {e['ms'] * 1e3:.2f} us with L2 "
+                  f"emptied ({e['graph_ms'] * 1e3:.2f} us warm), bound {e['bound_ms'] * 1e3:.2f} us "
+                  f"(bytes, {100 * e['bound_ms'] / e['ms']:.2f} % of bound), device time: plain "
+                  f"{e['plain_ms'] * 1e3:.2f} us, library {e['library_ms'] * 1e3:.2f} us; launches by "
+                  f"path {e['launches_by_path']}")
+            continue
         dev_t = e["device_ms"]
         print(f"{e['name']} at {rows}x{cols} f32 [{card}]: {e['ms'] * 1e3:.2f} us per pass, "
               f"bound {e['bound_ms'] * 1e3:.2f} us ({e['bound_by']}, "

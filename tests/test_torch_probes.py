@@ -222,8 +222,10 @@ def test_cpu_calls_launch_nothing_and_build_nothing(monkeypatch):
 
 def test_reset_launch_counts_zeroes_every_kernel():
     kernels.HBM_READ.launches = 3
+    kernels.RMSNORM_BWD.launches = 2
     kernels.reset_launch_counts()
-    assert kernels.launch_counts() == {"hbm_read": 0, "hbm_copy": 0}
+    assert kernels.launch_counts() == {"hbm_read": 0, "hbm_copy": 0, "rmsnorm_fwd": 0,
+                                       "rmsnorm_bwd": 0}
 
 
 def test_missing_nvcc_is_a_clear_error(monkeypatch, tmp_path):

@@ -25,6 +25,9 @@ pytest.importorskip("torch")  # the port's own CI job installs it
 
 import asyncio
 import math
+import pathlib
+import subprocess
+import sys
 import time
 
 import jax
@@ -40,6 +43,7 @@ from tpudash_torch.exporter.server import WARMUP_TASK, make_app
 from tpudash_torch.models import workload as T
 from tpudash_torch.models.checkpoint import CheckpointError, WorkloadCheckpointer
 from tpudash_torch.models.runner import WorkloadRunner
+from tpudash_torch.ops import kernels as K
 from tpudash_torch.sources.base import SourceError
 from tpudash_torch.sources.workload import (
     WORKLOAD_LOSS,
@@ -527,3 +531,180 @@ def test_orbax_checkpoint_of_the_reference_degrades_to_no_checkpoints(tmp_path, 
     assert runner.error is None and runner.resumed_from is None
     assert any("checkpointing disabled" in r.getMessage() for r in caplog.records)
     assert WorkloadCheckpointer(str(tmp_path)).steps() == [5]  # nothing written over it
+
+
+# --- the norm's kernels: their plain versions and wrappers on the CPU ---------------
+#
+# On a GPU ``_rmsnorm`` runs ``kernels.rmsnorm`` (csrc/rmsnorm.cu, forward and
+# backward); chip_smoke.py's norm phase holds the kernels to these plain
+# versions on the card.  Here: the CPU path is the plain expression, the
+# backward's closed form is autograd's and the reference's gradient, the
+# wrappers refuse what the kernels do not take before anything is built, and
+# the launch plan covers every width it accepts.
+
+
+def _norm_inputs(shape, seed=5):
+    rng = np.random.default_rng(seed)
+    d = shape[-1]
+    x = _torch(_bf16(rng.standard_normal(shape) * 3))
+    scale = torch.from_numpy((1 + 0.2 * rng.standard_normal(d)).astype(np.float32))
+    g = _torch(_bf16(rng.standard_normal(shape)))
+    return x, scale, g
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 64), (37, 1024), (3, 8)])
+def test_rmsnorm_on_cpu_is_bitwise_the_plain_expression(shape):
+    x, scale, _ = _norm_inputs(shape)
+    x32 = x.float()
+    rms = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + 1e-6)
+    want = (x32 * rms * scale).to(torch.bfloat16)
+    got = T._rmsnorm(x, scale)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert torch.equal(K.rmsnorm_ref(x, scale), want)
+
+
+@pytest.mark.parametrize("d", [64, 1024])
+def test_rmsnorm_backward_closed_form_matches_autograd_and_the_reference(d):
+    """The kernel's closed form (dx before its rounding, dscale) against
+    autograd of the plain forward and ``jax.vjp`` of the reference's
+    ``_rmsnorm``, x given in f32 (bf16 values) so that dx is compared before
+    the bf16 rounding: within f32 noise, 2^-18 of the largest value."""
+    x, scale, g = _norm_inputs((3, 40, d), seed=d)
+    dx, dscale = K.rmsnorm_grads_ref(x, scale, g)
+    assert dx.dtype == dscale.dtype == torch.float32 and dscale.shape == (d,)
+
+    xr = x.float().requires_grad_(True)
+    sr = scale.clone().requires_grad_(True)
+    want_dx, want_ds = torch.autograd.grad(K.rmsnorm_ref(xr, sr), (xr, sr), g)
+
+    _, vjp = jax.vjp(J._rmsnorm, jnp.asarray(x.float().numpy()), jnp.asarray(scale.numpy()))
+    ref_dx, ref_ds = (np.asarray(a, np.float32)
+                      for a in vjp(jnp.asarray(g.float().numpy(), jnp.bfloat16)))
+
+    for got, wants in ((dx, (want_dx, ref_dx)), (dscale, (want_ds, ref_ds))):
+        got = got.numpy()
+        for want in wants:
+            want = np.asarray(want, np.float32)
+            assert np.abs(got - want).max() <= 2.0**-18 * np.abs(want).max()
+    # rounded once, dx is within one bf16 unit of autograd's rounded gradient
+    xb = x.clone().requires_grad_(True)
+    (auto_dx,) = torch.autograd.grad(K.rmsnorm_ref(xb, scale), (xb,), g)
+    assert auto_dx.dtype == torch.bfloat16
+    assert (dx.to(torch.bfloat16).float() - auto_dx.float()).abs().max() <= U * dx.abs().max()
+
+
+def _refuses(exc, monkeypatch, fn, *args):
+    def no_nvcc(*a, **k):
+        raise AssertionError("nothing may be built for an argument the kernels refuse")
+
+    monkeypatch.setattr(K.subprocess, "Popen", no_nvcc)
+    before = K.launch_counts()
+    with pytest.raises(exc):
+        fn(*args)
+    assert K.launch_counts() == before
+    assert K.RMSNORM_FWD._fn is None and K.RMSNORM_BWD._fn is None
+
+
+NORM_REFUSALS = {
+    "cpu tensors": (ValueError, lambda: _norm_inputs((4, 64))),
+    "f32 x": (TypeError, lambda: (torch.ones(4, 64), torch.ones(64), torch.ones(4, 64).bfloat16())),
+    "f16 x": (TypeError, lambda: (torch.ones(4, 64).half(), torch.ones(64), torch.ones(4, 64).half())),
+    "bf16 scale": (TypeError, lambda: (torch.ones(4, 64).bfloat16(), torch.ones(64).bfloat16(),
+                                       torch.ones(4, 64).bfloat16())),
+    "d not a multiple of 8": (ValueError, lambda: _norm_inputs((4, 60))),
+    "d above the widest": (ValueError, lambda: _norm_inputs((2, K.NORM_MAX_D + 8))),
+    "scale of another width": (ValueError, lambda: (torch.ones(4, 64).bfloat16(), torch.ones(32),
+                                                    torch.ones(4, 64).bfloat16())),
+    "non-contiguous x": (ValueError, lambda: (torch.ones(64, 4).bfloat16().t(), torch.ones(64),
+                                              torch.ones(4, 64).bfloat16())),
+}
+
+
+@pytest.mark.parametrize("case", NORM_REFUSALS)
+@pytest.mark.parametrize("which", ["forward", "backward", "function"])
+def test_rmsnorm_wrappers_raise_before_launching(case, which, monkeypatch):
+    exc, make = NORM_REFUSALS[case]
+    x, scale, g = make()
+    fn = {"forward": lambda: K.rmsnorm_forward(x, scale),
+          "backward": lambda: K.rmsnorm_backward(x, scale, g),
+          "function": lambda: K.rmsnorm(x, scale)}[which]
+    _refuses(exc, monkeypatch, fn)
+
+
+def test_rmsnorm_backward_refuses_a_gradient_of_another_shape(monkeypatch):
+    x, scale, g = _norm_inputs((4, 64))
+    _refuses(ValueError, monkeypatch, K.rmsnorm_backward, x, scale, g[:2])
+
+
+@pytest.mark.parametrize("d", [8, 64, 256, 1000, 1024, 1032, 2048, 2056, 4096, 4104, 8192])
+@pytest.mark.parametrize("rows", [1, 7, 8176])
+def test_norm_plan_covers_each_row_once_with_a_fixed_backward_grid(rows, d):
+    """csrc/rmsnorm.cu's plan: a team of ``warps`` warps covers a row with
+    ``vecs`` 16-byte vectors a thread (at most 4) and as few warps as will
+    do; the forward has a team for every row; the backward's grid depends
+    on the shape alone and stays within the C entry's 264 blocks."""
+    p = K._norm_plan(rows, d)
+    assert p.warps in (1, 2, 4, 8) and 1 <= p.vecs <= 4
+    assert p.warps * 32 * p.vecs * 8 >= d > p.warps * 32 * (p.vecs - 1) * 8
+    assert p.warps == 1 or d > p.warps // 2 * 32 * 4 * 8
+    teams = 8 // p.warps
+    assert p.forward_grid == -(-rows // teams)
+    assert p.backward_grid == min(p.forward_grid, 264)
+    assert K._norm_plan(rows, d) == p
+
+
+@pytest.mark.parametrize("rows, d", [(0, 64), (4, 0), (4, 12), (4, K.NORM_MAX_D + 8)])
+def test_norm_plan_refuses_what_the_kernels_do_not_take(rows, d):
+    with pytest.raises(ValueError):
+        K._norm_plan(rows, d)
+
+
+def test_rmsnorm_function_wires_its_kernels_into_autograd(monkeypatch):
+    """The autograd function with its two wrappers swapped for their plain
+    versions on the CPU: it saves x and scale, hands the backward a
+    contiguous gradient (here an expanded one, as ``y.sum()`` gives) and
+    returns both gradients as autograd of the plain forward has them."""
+    seen = {}
+
+    def forward(x, scale):
+        return K.rmsnorm_ref(x, scale)
+
+    def backward(x, scale, g):
+        seen["contiguous"] = g.is_contiguous()
+        dx, dscale = K.rmsnorm_grads_ref(x, scale, g)
+        return dx.to(torch.bfloat16), dscale
+
+    monkeypatch.setattr(K, "rmsnorm_forward", forward)
+    monkeypatch.setattr(K, "rmsnorm_backward", backward)
+    x, scale, _ = _norm_inputs((5, 64))
+    xk, sk = x.clone().requires_grad_(True), scale.clone().requires_grad_(True)
+    K.rmsnorm(xk, sk).float().sum().backward()
+    xp, sp = x.clone().requires_grad_(True), scale.clone().requires_grad_(True)
+    K.rmsnorm_ref(xp, sp).float().sum().backward()
+    assert seen == {"contiguous": True}
+    assert xk.grad.dtype == torch.bfloat16 and sk.grad.dtype == torch.float32
+    assert (xk.grad.float() - xp.grad.float()).abs().max() <= U * xp.grad.float().abs().max()
+    assert torch.allclose(sk.grad, sp.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_importing_the_kernels_and_the_model_compiles_nothing():
+    """A fresh interpreter imports torch, then, with nvcc and the library
+    loader made to fail, ops.kernels and models.workload: nothing is built
+    or loaded until a kernel is asked for on a GPU."""
+    code = (
+        "import ctypes, subprocess\n"
+        "import torch\n"
+        "def refuse(*a, **k):\n"
+        "    raise SystemExit('built or loaded at import: %r' % (a,))\n"
+        "subprocess.Popen = refuse\n"
+        "ctypes.CDLL = refuse\n"
+        "from tpudash_torch.ops import kernels\n"
+        "from tpudash_torch.models import workload\n"
+        "assert all(k._fn is None for k in kernels.KERNELS)\n"
+        "assert {'rmsnorm_fwd', 'rmsnorm_bwd'} <= set(kernels.launch_counts())\n"
+        "print('clean')\n"
+    )
+    root = pathlib.Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "clean", r.stderr[-2000:]

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """The workload's multi-GPU paths over every GPU of one host.
 
-    python3 tools/workload_check.py [--phases sharded,ring,pipeline,pipeline3d,moe]
+    python3 tools/workload_check.py [--phases norm,sharded,ring,pipeline,pipeline3d,moe]
 
 A check and measurement tool, not part of the package: nothing imports it.
 Every ``make_*_train_step``'s step is compiled (``graphed.compiled``): on
 GPUs one CUDA graph over every GPU of its mesh, captured at the first
 call.  By phase:
 
+- ``norm``: ``chip_smoke.norm_phase`` without its timing (the norm's
+  kernels against autograd of the plain forward on GPU 0, at every width
+  the port runs and the plan's edges, graphed and eager; their launches
+  over the first call of the dp 1 × tp n step over every GPU);
 - ``sharded``: ``chip_smoke.sharded_phase`` (the dp×tp sharded step,
   graphed, at the workload source's full defaults against the unsharded
   step: loss, gradients and parameters after one step, each shard on the
@@ -55,7 +59,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-PHASES = ("sharded", "ring", "pipeline", "pipeline3d", "moe")
+PHASES = ("norm", "sharded", "ring", "pipeline", "pipeline3d", "moe")
 
 
 def main(argv: list) -> int:
@@ -90,6 +94,8 @@ def main(argv: list) -> int:
     dev0 = torch.device("cuda", 0)
     every_gpu = [torch.device("cuda", i) for i in range(n)]
     label = f"{n} distinct GPUs"
+    if "norm" in phases:
+        chip_smoke.norm_phase(every_gpu, card, gen, label, timing=False)
     kernels.reset_launch_counts()
     if "sharded" in phases:
         chip_smoke.sharded_phase([dev0, dev0], card, gen, "rehearsal on one card named twice")
@@ -124,8 +130,9 @@ def main(argv: list) -> int:
         else:
             print(f"MoE over {n} GPUs: NOT RUN ({n_experts} experts do not split over ep {n})")
     counts = kernels.launch_counts()
-    chip_smoke.check(counts == {"hbm_read": 0, "hbm_copy": 0}, f"probe kernels launched: {counts}")
-    print(f"workload_check: ok ({', '.join(phases)}); probe kernel launches {counts}")
+    chip_smoke.check(counts["hbm_read"] == counts["hbm_copy"] == 0,
+                     f"probe kernels launched: {counts}")
+    print(f"workload_check: ok ({', '.join(phases)}); kernel launches {counts}")
     return 0
 
 

@@ -5,7 +5,8 @@ The parameter tree has the reference's names and stacked layout (leading
 dim ``n_layers`` on ``blocks.*``, bf16 weights, f32 norms), and the forward
 keeps every dtype point of the reference:
 
-- RMSNorm in f32 (eps 1e-6), cast to bf16;
+- RMSNorm in f32 (eps 1e-6), cast to bf16, on GPUs by a hand-written
+  kernel forward and backward (``ops/csrc/rmsnorm.cu``);
 - the qkv, out, up and down products in bf16;
 - attention scores in f32 (bf16 operands, whose products are exact in f32),
   times ``hd**-0.5``, a causal mask filled with −1e30, softmax in f32, then
@@ -42,6 +43,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tpudash_torch.models.graphed import compiled
+from tpudash_torch.ops import kernels
 from tpudash_torch.parallel.collectives import (
     allreduce_replicas,
     copy_to_group,
@@ -144,9 +146,12 @@ def _unflatten(pairs) -> dict:
 # --- forward ----------------------------------------------------------------
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    x32 = x.float()
-    rms = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + 1e-6)
-    return (x32 * rms * scale).to(torch.bfloat16)
+    """RMSNorm over the last dim in f32, rounded once to bf16: on a GPU the
+    hand-written kernels, forward and backward (``kernels.rmsnorm``; x
+    contiguous bf16, d a multiple of 8), on the CPU their plain version."""
+    if x.is_cuda:
+        return kernels.rmsnorm(x, scale)
+    return kernels.rmsnorm_ref(x, scale)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,17 @@
-"""Hand-written Hopper kernels of the probes: loader, wrappers, plain versions.
+"""Hand-written Hopper kernels of the probes and the model step: loader,
+wrappers, plain versions.
 
-Two kernels, one CUDA C++ source each under ``csrc/``:
+Four kernels, from three CUDA C++ sources under ``csrc/``:
 
 - ``hbm_read`` (``csrc/hbm_read.cu``) replaces the Pallas
   ``_hbm_read_kernel``: ``out(1, cols) = prev + Σ_rows x``.
 - ``hbm_copy`` (``csrc/hbm_copy.cu``) replaces the Pallas ``_copy_kernel``:
   a copy of the buffer, through a persistent grid of bulk-copy (TMA) rings;
   :func:`_copy_plan` cuts the buffer for it.
+- ``rmsnorm_fwd`` and ``rmsnorm_bwd`` (``csrc/rmsnorm.cu``): the model's
+  RMSNorm and its gradient, each row read once; :func:`rmsnorm` is the
+  autograd function over them and :func:`_norm_plan` their launch.  They
+  replace no Pallas kernel: the reference leaves the norm to XLA's fusion.
 
 Build: the first time a kernel is asked for on a CUDA tensor, ``nvcc``
 compiles its source for ``sm_90a`` into a shared library with a plain C
@@ -18,7 +23,9 @@ Each wrapper checks device, dtype, shape, contiguity and alignment and
 raises on anything its kernel does not take; allocates outputs and scratch
 with ``torch.empty``; launches on the current stream of the tensor's device;
 raises if the launch returns a CUDA error; and adds one to its kernel's
-``launches``.  Only a tensor that lies on the CPU goes to the plain version.
+``launches``.  The probes' wrappers send a tensor that lies on the CPU to
+the plain version; the norm's raise on it, and their caller
+(``models/workload.py::_rmsnorm``) sends CPU tensors to :func:`rmsnorm_ref`.
 There is no fallback from the card to the plain version.
 """
 
@@ -57,7 +64,7 @@ def _nvcc() -> str:
         return str(path)
     raise RuntimeError(
         "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
-        "probe kernels are compiled from tpudash_torch/ops/csrc on first use"
+        "kernels are compiled from tpudash_torch/ops/csrc on first use"
     )
 
 
@@ -140,18 +147,34 @@ HBM_COPY = CudaKernel(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
 )
-KERNELS: tuple[CudaKernel, ...] = (HBM_READ, HBM_COPY)
+RMSNORM_FWD = CudaKernel(
+    "rmsnorm_fwd", "rmsnorm.cu", "tpudash_rmsnorm_forward",
+    # x, scale, y, rows, d, then a NormPlan's vecs, warps, forward_grid
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5,
+)
+RMSNORM_BWD = CudaKernel(
+    "rmsnorm_bwd", "rmsnorm.cu", "tpudash_rmsnorm_backward",
+    # x, scale, g, dx, partial, dscale, rows, d, then vecs, warps, backward_grid
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
+)
+KERNELS: tuple[CudaKernel, ...] = (HBM_READ, HBM_COPY, RMSNORM_FWD, RMSNORM_BWD)
 
 
 def build_kernels(kernels: "list[CudaKernel] | tuple[CudaKernel, ...]" = KERNELS) -> float:
     """Compile (one nvcc per source, all started together) and load every
-    kernel not loaded yet; returns the wall seconds it took."""
+    kernel not loaded yet; returns the wall seconds it took.  Kernels of one
+    source share its library."""
     t0 = time.perf_counter()
     with _BUILD_LOCK:
         todo = [k for k in kernels if k._fn is None]
-        jobs = [(k, k._start_nvcc()) for k in todo]
-        for k, job in jobs:
-            k._load(job)
+        jobs: dict = {}
+        for k in todo:
+            if k.library_path not in jobs:
+                jobs[k.library_path] = k._start_nvcc()
+        logs: dict = {}
+        for k in todo:
+            k._load(jobs.pop(k.library_path, None))
+            k.build_log = logs.setdefault(k.library_path, k.build_log)
     return time.perf_counter() - t0
 
 
@@ -319,3 +342,143 @@ def hbm_copy(x: torch.Tensor, out: "torch.Tensor | None" = None) -> torch.Tensor
         plan = _copy_plan(x.numel(), _sm_count(x.device.index))
         HBM_COPY.launch(x.device, x.data_ptr(), out.data_ptr(), *plan)
     return out
+
+
+# --- rmsnorm -------------------------------------------------------------------
+
+#: the widest row the norm kernels take (8 warps × 32 threads × 4 vectors × 8)
+NORM_MAX_D = 8192
+#: csrc/rmsnorm.cu's block: 8 warps, shared by 8 / warps rows
+_NORM_WARPS = 8
+#: the backward's fixed grid: two blocks on each of an H100's 132 SMs
+_NORM_BACKWARD_BLOCKS = 264
+NORM_EPS = 1e-6
+
+
+class NormPlan(NamedTuple):
+    """How the norm kernels cut ``rows`` rows of ``d`` values: a team of
+    ``warps`` warps owns a row, each of its threads ``vecs`` 16-byte vectors
+    (8 values) of it; ``8 // warps`` teams a block.  The forward runs one
+    row a team on ``forward_grid`` blocks; the backward's
+    ``backward_grid`` blocks each write one row of partial sums of
+    ``dscale``, so its order depends on the shape alone."""
+
+    vecs: int
+    warps: int
+    forward_grid: int
+    backward_grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def _norm_plan(rows: int, d: int) -> NormPlan:
+    """The norm kernels' launch for ``rows`` rows of width ``d``."""
+    if rows < 1 or d < 8 or d % 8 or d > NORM_MAX_D:
+        raise ValueError(f"no norm plan for {rows} rows of width {d}: d must be a multiple "
+                         f"of 8 up to {NORM_MAX_D}")
+    warps = 1
+    while d > warps * 32 * 4 * 8:
+        warps *= 2
+    vecs = -(-d // (warps * 32 * 8))
+    grid = -(-rows // (_NORM_WARPS // warps))
+    return NormPlan(vecs, warps, grid, min(grid, _NORM_BACKWARD_BLOCKS))
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of the forward: ``bf16((f32(x) · r) · scale)`` with
+    ``r = rsqrt(mean(f32(x)²) + 1e-6)``, the reference's expression."""
+    x32 = x.float()
+    rms = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + NORM_EPS)
+    return (x32 * rms * scale).to(torch.bfloat16)
+
+
+def rmsnorm_grads_ref(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor):
+    """Plain version of the backward, in the closed form the kernel
+    computes, all in f32: ``(dx, dscale)`` with ``dx = r·(g·s − x̂·mean(g·s·x̂))``
+    before its rounding to bf16 and ``dscale = Σ_rows g·x̂``, ``x̂ = f32(x)·r``."""
+    x32, g32 = x.float(), g.float()
+    r = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + NORM_EPS)
+    xh = x32 * r
+    gs = g32 * scale
+    mean = (gs * xh).sum(-1, keepdim=True) / x.shape[-1]
+    dx = r * (gs - xh * mean)
+    return dx, (g32 * xh).reshape(-1, x.shape[-1]).sum(0)
+
+
+def _check_norm_args(x: torch.Tensor, scale: torch.Tensor, g: "torch.Tensor | None" = None) -> None:
+    tensors = {"x": x, "scale": scale} if g is None else {"x": x, "scale": scale, "g": g}
+    if x.dtype != torch.bfloat16 or (g is not None and g.dtype != torch.bfloat16):
+        raise TypeError(f"the norm takes bf16 x and g, got {x.dtype}"
+                        f"{'' if g is None else f' and {g.dtype}'}")
+    if scale.dtype != torch.float32:
+        raise TypeError(f"the norm takes an f32 scale, got {scale.dtype}")
+    d = x.shape[-1] if x.dim() else 0
+    if d < 8 or d % 8 or d > NORM_MAX_D:
+        raise ValueError(f"the norm kernels take a last dim that is a multiple of 8 up to "
+                         f"{NORM_MAX_D}, got shape {tuple(x.shape)}")
+    if tuple(scale.shape) != (d,):
+        raise ValueError(f"scale must be ({d},), got {tuple(scale.shape)}")
+    if g is not None and g.shape != x.shape:
+        raise ValueError(f"g must have x's shape {tuple(x.shape)}, got {tuple(g.shape)}")
+    if not all(t.is_contiguous() for t in tensors.values()):
+        raise ValueError("the norm kernels take contiguous tensors")
+    if x.device.type != "cuda":
+        raise ValueError(f"the norm kernels run on CUDA devices, not {x.device}; "
+                         "rmsnorm_ref is their plain version")
+    if any(t.device != x.device for t in tensors.values()):
+        raise ValueError(f"tensors on {[str(t.device) for t in tensors.values()]}: one device")
+    for what, t in tensors.items():
+        _check_card_tensor(t, what)
+
+
+def rmsnorm_forward(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The forward kernel: ``rmsnorm_ref(x, scale)`` over the last dim of a
+    contiguous bf16 ``x`` on a GPU, as a new bf16 tensor."""
+    _check_norm_args(x, scale)
+    y = torch.empty_like(x)
+    rows, d = x.numel() // x.shape[-1], x.shape[-1]
+    if rows:
+        plan = _norm_plan(rows, d)
+        RMSNORM_FWD.launch(x.device, x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d,
+                           plan.vecs, plan.warps, plan.forward_grid)
+    return y
+
+
+def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor,
+                     g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernels: ``(dx, dscale)`` for the upstream gradient ``g``
+    of ``rmsnorm_forward(x, scale)``, dx bf16 and dscale f32, as
+    :func:`rmsnorm_grads_ref` computes them (dx rounded once)."""
+    _check_norm_args(x, scale, g)
+    rows, d = x.numel() // x.shape[-1], x.shape[-1]
+    dx = torch.empty_like(x)
+    if not rows:
+        return dx, torch.zeros_like(scale)
+    plan = _norm_plan(rows, d)
+    partial = torch.empty((plan.backward_grid, d), dtype=torch.float32, device=x.device)
+    dscale = torch.empty_like(scale)
+    RMSNORM_BWD.launch(x.device, x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                       partial.data_ptr(), dscale.data_ptr(), rows, d,
+                       plan.vecs, plan.warps, plan.backward_grid)
+    return dx, dscale
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The norm on a GPU, forward and backward each a kernel.  It saves x
+    and scale only: the backward recomputes r from x."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.save_for_backward(x, scale)
+        return rmsnorm_forward(x, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        return rmsnorm_backward(x, scale, g.contiguous())
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """:func:`rmsnorm_ref` through the kernels, differentiable in both
+    arguments; raises on what the kernels do not take, a CPU tensor
+    included."""
+    return _RMSNorm.apply(x, scale)
