@@ -32,6 +32,9 @@ class Config:
     #: (empty dir or every=0 disables)
     workload_checkpoint_dir: str = ""
     workload_checkpoint_every: int = 64
+    #: source="workload": the model it trains, "demo" (the demo transformer,
+    #: over every GPU) or "deepseek-v2-lite" (models/deepseek_v2.py, one GPU)
+    workload_model: str = "demo"
     extra: dict = field(default_factory=dict)
 
 
@@ -43,6 +46,7 @@ _ENV_MAP = {
     "generation": "TPUDASH_GENERATION",
     "workload_checkpoint_dir": "TPUDASH_WORKLOAD_CKPT_DIR",
     "workload_checkpoint_every": "TPUDASH_WORKLOAD_CKPT_EVERY",
+    "workload_model": "TPUDASH_WORKLOAD_MODEL",
 }
 
 

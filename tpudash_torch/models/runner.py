@@ -11,6 +11,11 @@ plain step.  Both are ``graphed.compiled``: on GPUs the step is captured
 once, at the first call, as one CUDA graph over every device and replayed
 with one launch a step, as the reference dispatches one ``jax.jit``
 program a step; on the CPU, which only tests ask for, it runs eagerly.
+
+Given a ``DeepseekV2Config`` it trains DeepSeek-V2-Lite
+(``models/deepseek_v2.py``) instead, on one device only (the runner refuses
+more), and reports the routing counters of each sync interval beside the
+step's series.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import time
 
 import torch
 
+from tpudash_torch.models import deepseek_v2 as dsv2
 from tpudash_torch.models.graphed import compiled
 from tpudash_torch.models.workload import (
     WorkloadConfig,
@@ -63,6 +69,12 @@ class WorkloadRunner:
     ):
         self.cfg = cfg or WorkloadConfig()
         self.devices = training_devices(device, devices)
+        self.dsv2 = isinstance(self.cfg, dsv2.DeepseekV2Config)
+        if self.dsv2 and len(self.devices) > 1:
+            raise ValueError(
+                f"the deepseek-v2-lite workload trains on one GPU, not {len(self.devices)}: "
+                "its experts are not sharded over GPUs yet; give it one device "
+                "(CUDA_VISIBLE_DEVICES) or train the demo model")
         #: dispatch this many steps back to back before one host readback:
         #: a per-step readback would idle the card between steps
         self.steps_per_sync = max(1, steps_per_sync)
@@ -80,6 +92,8 @@ class WorkloadRunner:
         self.step_time_ema = float("nan")  # seconds
         self.error: str | None = None
         self.resumed_from: int | None = None
+        #: deepseek-v2-lite: routing series of the last sync interval
+        self.routing: dict = {}
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "WorkloadRunner":
@@ -106,9 +120,10 @@ class WorkloadRunner:
         try:
             cfg, devs = self.cfg, self.devices
             dev = devs[0]
-            params, optimizer = make_train_state(
+            params, optimizer = (dsv2.make_train_state if self.dsv2 else make_train_state)(
                 cfg, torch.Generator(device=dev).manual_seed(0)
             )
+            counters = dsv2.routing_counters(cfg, dev) if self.dsv2 else None
 
             # checkpointing is best-effort: an unwritable dir, a corrupt
             # checkpoint or one of another package must degrade to "train
@@ -137,6 +152,11 @@ class WorkloadRunner:
 
                 def full_state():  # a checkpoint holds the gathered state
                     return gather_train_state(params, optimizer, plan)
+            elif self.dsv2:
+                step = dsv2.make_train_step(cfg, dev, counters)
+
+                def full_state():
+                    return params, optimizer
             else:
                 step = compiled(lambda p, o, t: train_step(p, o, t, cfg))
 
@@ -147,6 +167,7 @@ class WorkloadRunner:
             data_gen = torch.Generator(device=dev).manual_seed(1)
             k = self.steps_per_sync
             last_saved = self.steps
+            last_counts = [0] * (cfg.n_held + 1) if self.dsv2 else None
             while not self._stop.is_set():
                 t0 = time.perf_counter()
                 loss = None
@@ -157,7 +178,15 @@ class WorkloadRunner:
                     loss = step(params, optimizer, tokens)
                 loss_val = loss.item()  # readback = true batch boundary
                 dt = (time.perf_counter() - t0) / k
+                routing = None
+                if counters is not None:  # read after the sync: no extra one
+                    now = counters.tolist()
+                    delta = [a - b for a, b in zip(now, last_counts)]
+                    routing = dsv2.load_stats(delta[:-1], delta[-1])
+                    last_counts = now
                 with self._lock:
+                    if routing is not None:
+                        self.routing = routing
                     self.steps += k
                     self.loss = loss_val
                     self.step_time_ema = (
@@ -188,12 +217,16 @@ class WorkloadRunner:
                 raise RuntimeError(self.error)
             st = self.step_time_ema
             ok = st == st and st > 0
+            if self.dsv2:
+                per = self.routing.get("moe_tokens_per_held_expert")
+                flops = dsv2.flops_per_step(self.cfg, sum(per) if per else None)
+            else:
+                flops = flops_per_step(self.cfg)
             return {
+                **self.routing,
                 "steps": self.steps,
                 "resumed_from": self.resumed_from,
                 "loss": self.loss,
                 "steps_per_second": (1.0 / st) if ok else 0.0,
-                "achieved_tflops": (
-                    flops_per_step(self.cfg) / st / 1e12 if ok else 0.0
-                ),
+                "achieved_tflops": flops / st / 1e12 if ok else 0.0,
             }

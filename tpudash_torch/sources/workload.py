@@ -9,7 +9,10 @@ device as its own ``chip_id``, as the reference does: utilisation is the
 achieved TFLOP/s ÷ n ÷ peak, and memory is that device's.
 
 Workload sizing comes from ``Config.extra`` with the reference's
-``workload_*`` keys and defaults.
+``workload_*`` keys and defaults.  ``Config.workload_model`` chooses the
+model: the demo transformer, or DeepSeek-V2-Lite on one GPU
+(``models/deepseek_v2.py``, at the published widths; its ``workload_*``
+keys are ``deepseek_v2.config_from_extra``'s).
 """
 
 from __future__ import annotations
@@ -46,19 +49,26 @@ class TorchWorkloadSource(MetricsSource):
         device: "torch.device | str | None" = None,
         devices: "list | None" = None,
     ):
+        from tpudash_torch.models import deepseek_v2
         from tpudash_torch.models.runner import WorkloadRunner
         from tpudash_torch.models.workload import WorkloadConfig
 
         self.cfg = cfg
-        wcfg = WorkloadConfig(
-            vocab=int(cfg.extra.get("workload_vocab", 2048)),
-            d_model=int(cfg.extra.get("workload_d_model", 1024)),
-            n_heads=int(cfg.extra.get("workload_n_heads", 16)),
-            n_layers=int(cfg.extra.get("workload_n_layers", 8)),
-            d_ff=int(cfg.extra.get("workload_d_ff", 4096)),
-            seq=int(cfg.extra.get("workload_seq", 512)),
-            batch=int(cfg.extra.get("workload_batch", 16)),
-        )
+        if cfg.workload_model == "deepseek-v2-lite":
+            wcfg = deepseek_v2.config_from_extra(cfg.extra)
+        elif cfg.workload_model == "demo":
+            wcfg = WorkloadConfig(
+                vocab=int(cfg.extra.get("workload_vocab", 2048)),
+                d_model=int(cfg.extra.get("workload_d_model", 1024)),
+                n_heads=int(cfg.extra.get("workload_n_heads", 16)),
+                n_layers=int(cfg.extra.get("workload_n_layers", 8)),
+                d_ff=int(cfg.extra.get("workload_d_ff", 4096)),
+                seq=int(cfg.extra.get("workload_seq", 512)),
+                batch=int(cfg.extra.get("workload_batch", 16)),
+            )
+        else:
+            raise ValueError(f"workload_model {cfg.workload_model!r}: "
+                             "not 'demo' or 'deepseek-v2-lite'")
         self.runner = WorkloadRunner(
             wcfg,
             steps_per_sync=int(cfg.extra.get("workload_steps_per_sync", 8)),
