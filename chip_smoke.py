@@ -19,9 +19,17 @@ From the root of a checkout, on a host with one H100:
    over the card named four times (and over every GPU when there are
    several): 33 forward and 17 backward a device a step; their times beside
    the plain chain, F.rms_norm and the bound of their bytes;
+3e. holds the MoE dispatch's kernels (csrc/moe_dispatch.cu) against their
+   plain versions at the DeepSeek-V2-Lite cell's shapes (S 32,760, top-6 of
+   64 with 8 held, d 2048, width 1,408, skewed routing), every row past the
+   valid count NaN: gather, combine and their backwards' rows the same bits,
+   the SwiGLU within a bf16 ulp, two calls bitwise, no row past the count
+   written; the launches of the cell's graphed step (9 a MoE layer, 234 a
+   step); each kernel's time with L2 emptied beside the bound of its bytes
+   at that valid count and the PyTorch chain it replaced;
 3a. loads the kernels as the exporter image does, with no compiler: a fresh
    process with nvcc off PATH and CUDA_HOME=/nonexistent loads phase 2's
-   libraries, launches both and matches their plain versions; the same
+   libraries, launches each kernel once and matches its plain version; the same
    process over a copy with an empty build directory fails "nvcc not found";
 3b. runs the image's build stage (deploy/torch/Dockerfile) with no GPU
    visible: a venv of only the distributions deploy/torch/requirements.lock
@@ -1675,7 +1683,26 @@ y = kernels.rmsnorm_forward(h, scale)
 dh, dscale = kernels.rmsnorm_backward(h, scale, h)
 y_ref = kernels.rmsnorm_ref(h, scale).float()
 ulp = torch.pow(2.0, torch.floor(torch.log2(y_ref.abs().clamp_min(2.0**-126))) - 7)
+# the dispatch's six on a small layout: the first half of 64 x 3 rows valid
+S, K, d, f = 64, 3, 64, 24
+nv, cap = S * K // 2, S * K
+pos = torch.randperm(cap, generator=g, device=dev).to(torch.int32).view(S, K)
+n_valid = torch.tensor([nv], dtype=torch.int32, device=dev)
+xm = torch.randn((S, d), generator=g, device=dev).bfloat16()
+gm = torch.rand((S, K), generator=g, device=dev)
+xs = kernels.moe_gather_forward(xm, pos, n_valid, cap)
+dxm = kernels.moe_gather_backward(xs, pos, n_valid)
+hm = torch.randn((cap, 2 * f), generator=g, device=dev).bfloat16()
+act = kernels.moe_swiglu_forward(hm, n_valid)
+dhm = kernels.moe_swiglu_backward(hm, act, n_valid)
+ym = kernels.moe_combine_forward(xs, gm, pos, n_valid)
+dys, dgm = kernels.moe_combine_backward(ym, xs, gm, pos, n_valid)
 torch.cuda.synchronize()
+moe_ok = (torch.equal(xs[:nv], kernels.moe_gather_ref(xm, pos, n_valid, cap)[:nv])
+          and torch.equal(dxm, kernels.moe_gather_grad_ref(xs, pos, n_valid))
+          and torch.equal(ym, kernels.moe_combine_ref(xs, gm, pos, n_valid))
+          and all(bool(torch.isfinite(t[:nv].float()).all()) for t in (act, dhm, dys))
+          and bool(torch.isfinite(dgm).all()))
 print(json.dumps({
     "nvcc": nvcc, "load_s": took, "libraries": [str(k.library_path) for k in kernels.KERNELS],
     "launches": kernels.launch_counts(), "read_err": err.max().item(),
@@ -1683,6 +1710,7 @@ print(json.dumps({
     "copy_exact": torch.equal(copied, kernels.copy_ref(x)),
     "norm_ok": bool(((y.float() - y_ref).abs() <= ulp).all() and torch.isfinite(dscale).all()
                     and torch.isfinite(dh.float()).all()),
+    "moe_ok": moe_ok,
 }))
 """
 
@@ -1719,9 +1747,12 @@ def check_kernel_child(what: str, rc: int, out: list, err: str, tree: Path) -> d
     check(got["nvcc"] is None, f"{what}: nvcc was reachable")
     check(all(inside(lib, tree) for lib in got["libraries"]),
           f"{what}: libraries {got['libraries']} outside {tree}")
-    check(got["launches"] == {"hbm_read": 1, "hbm_copy": 1, "rmsnorm_fwd": 1, "rmsnorm_bwd": 1},
+    from tpudash_torch.ops import kernels
+
+    check(got["launches"] == {k.name: 1 for k in kernels.KERNELS},
           f"{what}: launches {got['launches']}")
     check(got["norm_ok"], f"{what}: the norm's forward off its plain version")
+    check(got["moe_ok"], f"{what}: a dispatch kernel off its plain version")
     check(got["read_ok"], f"{what}: hbm_read max err {got['read_err']:.3e} above its tolerance")
     check(got["copy_exact"], f"{what}: hbm_copy not exact")
     return got
@@ -1736,8 +1767,8 @@ def copy_tree(dst: Path) -> Path:
 
 def prebuilt_phase(card: str, shape: tuple, tmp: Path) -> None:
     """3a: the runtime image's premise.  A fresh process that cannot reach
-    nvcc loads phase 2's libraries, launches both kernels and matches their
-    plain versions; the same process over a copy of the package with an
+    nvcc loads phase 2's libraries, launches each kernel once and matches
+    its plain version; the same process over a copy of the package with an
     empty build directory fails for want of nvcc."""
     t0 = time.perf_counter()
     got = check_kernel_child("prebuilt libraries", *run_kernel_child([sys.executable], ROOT, shape),
@@ -2450,6 +2481,309 @@ def norm_phase(devices: list, card: str, gen, label: str, timing: bool = True) -
     return out
 
 
+#: the DeepSeek-V2-Lite cell's MoE dispatch: 8 sequences of 4,095 positions,
+#: top-6 of 64 routed experts with 8 held, d 2048, expert width 1,408
+MOE_DISPATCH_SHAPE = dict(S=8 * 4095, top_k=6, n_experts=64, held=8, d=2048, f=1408)
+#: the dispatch kernels' launches a MoE layer a train step: gather, SwiGLU
+#: and combine forward, again in the recompute, and their three backwards
+MOE_LAUNCHES_A_LAYER = 9
+#: the gates' gradient against the plain version: |a − b| over Σ|terms|
+#: (two orders of the same f32 dot product of width d)
+MOE_DGATE_RTOL = 2.0**-18
+
+
+def moe_dispatch_layout(dev, seed: int, shape: "dict | None" = None) -> dict:
+    """The cell's routing on ``dev``: softmax of N(0, 1) router logits with
+    expert e's raised by 0.1·ln(E / (r + 1)), r its rank (skewed, as the
+    cell's Zipf tokens skew it), the top-6 by ``moe._top_k``, the first 8
+    experts held; their ranks spread evenly over the E, so that they take
+    about their share of the choices, 8/64 in the cell, unevenly among
+    them; with ``dispatch_layout``'s pos, offsets and valid count."""
+    import torch
+
+    from tpudash_torch.models import deepseek_v2 as D
+    from tpudash_torch.models import moe
+
+    sh = dict(MOE_DISPATCH_SHAPE, **(shape or {}))
+    S, K, E, n = sh["S"], sh["top_k"], sh["n_experts"], sh["held"]
+    rng = torch.Generator(device=dev).manual_seed(seed)
+    e = torch.arange(E, device=dev)
+    rank = (e * n) % E + e * n // E
+    bias = 0.1 * torch.log(E / (rank + 1).float())
+    logits = torch.randn((S, E), generator=rng, device=dev) + bias
+    gates, experts = moe._top_k(torch.softmax(logits, -1), K)
+    slot_of = torch.full((E,), n, dtype=torch.int64, device=dev)
+    slot_of[:n] = torch.arange(n, device=dev)
+    counts, offs, n_valid, pos = D.dispatch_layout(experts, slot_of, n)
+    nv = int(n_valid.item())
+    return dict(sh, gates=gates.contiguous(), experts=experts, slot_of=slot_of, counts=counts,
+                offs=offs, n_valid=n_valid, pos=pos, nv=nv, cap=S * min(K, n),
+                tokens=int((pos < nv).any(1).sum().item()), rng=rng)
+
+
+def moe_dispatch_bytes(lay: dict) -> dict:
+    """Each dispatch kernel's bytes at the layout's valid count: every
+    input read once and every output written once, rows of d or f bf16
+    values, pos and the gates 4 bytes a choice."""
+    S, K, d, f, nv, nt = (lay[k] for k in ("S", "top_k", "d", "f", "nv", "tokens"))
+    idx = 4 * S * K + 4
+    return {"moe_gather_fwd": 2 * d * (nt + nv) + idx,
+            "moe_gather_bwd": 2 * d * (nv + S) + idx,
+            "moe_swiglu_fwd": 6 * f * nv + 4,
+            "moe_swiglu_bwd": 10 * f * nv + 4,
+            "moe_combine_fwd": 2 * d * (nv + S) + idx + 4 * S * K,
+            "moe_combine_bwd": 2 * d * (nt + 2 * nv) + idx + 8 * S * K}
+
+
+def moe_dispatch_checks(lay: dict, dev) -> dict:
+    """Each dispatch kernel against its plain version on inputs whose rows
+    past the valid count hold NaN: the gather, its backward, the combine and
+    dys the same bits, the SwiGLU and its backward within a bf16 ulp (plus,
+    for the gate's gradient, the f32 noise of 1 + g·(1 − s) where it
+    cancels), the gates' gradient within MOE_DGATE_RTOL of Σ|terms|; a
+    second call the same bits; and no row from the valid count on written
+    (each output pre-filled and launched into directly)."""
+    import torch
+
+    from tpudash_torch.ops import kernels as K
+
+    S, d, f, nv, cap = lay["S"], lay["d"], lay["f"], lay["nv"], lay["cap"]
+    pos, n_valid, gates, rng = lay["pos"], lay["n_valid"], lay["gates"], lay["rng"]
+
+    def rand(rows: int, cols: int, nan_from: "int | None" = None):
+        t = torch.randn((rows, cols), generator=rng, device=dev).bfloat16()
+        if nan_from is not None:
+            t[nan_from:] = float("nan")
+        return t
+
+    def same_twice(what: str, fn):
+        a, b = fn(), fn()
+        a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+        torch.cuda.synchronize()
+        check(all(torch.equal(u[:nv] if u.shape[0] == cap else u, v[:nv] if v.shape[0] == cap else v)
+                  for u, v in zip(a, b)), f"{what}: two calls differ")
+        return a if len(a) > 1 else a[0]
+
+    out = {}
+    x = rand(S, d)
+    xs = same_twice("moe_gather_fwd", lambda: K.moe_gather_forward(x, pos, n_valid, cap))
+    check(torch.equal(xs[:nv], K.moe_gather_ref(x, pos, n_valid, cap)[:nv]),
+          "moe_gather_fwd: differs from its plain version")
+    dxs = rand(cap, d, nv)
+    dx = same_twice("moe_gather_bwd", lambda: K.moe_gather_backward(dxs, pos, n_valid))
+    check(torch.equal(dx, K.moe_gather_grad_ref(dxs, pos, n_valid)),
+          "moe_gather_bwd: differs from its plain version")
+    h = rand(cap, 2 * f, nv)
+    act = same_twice("moe_swiglu_fwd", lambda: K.moe_swiglu_forward(h, n_valid))
+    act_p = K.moe_swiglu_ref(h, n_valid)
+    ulps = ((act[:nv].float() - act_p[:nv].float()).abs() / _ulp_bf16(act_p[:nv].float()))
+    out["swiglu_fwd_ulps"] = ulps.max().item()
+    out["swiglu_fwd_bitwise_share"] = (ulps == 0).float().mean().item()
+    check(out["swiglu_fwd_ulps"] <= 1.0, f"moe_swiglu_fwd: {out['swiglu_fwd_ulps']} ulps")
+    dact = rand(cap, f, nv)
+    dh = same_twice("moe_swiglu_bwd", lambda: K.moe_swiglu_backward(h, dact, n_valid))
+    dh_p = K.moe_swiglu_grad_ref(h, dact, n_valid)
+    g32, u32, a32 = h[:nv, :f].float(), h[:nv, f:].float(), dact[:nv].float()
+    s = torch.sigmoid(g32)
+    noise = torch.cat([8 * F32_U * (a32 * u32 * s).abs() * (1 + g32.abs()),
+                       torch.zeros_like(g32)], -1)
+    err = (dh[:nv].float() - dh_p[:nv].float()).abs()
+    out["swiglu_bwd_ulps"] = (err / _ulp_bf16(dh_p[:nv].float())).max().item()
+    out["swiglu_bwd_of_tol"] = (err / (_ulp_bf16(dh_p[:nv].float()) + noise)).max().item()
+    check(out["swiglu_bwd_of_tol"] <= 1.0,
+          f"moe_swiglu_bwd: {out['swiglu_bwd_of_tol']} of its tolerance")
+    ys = rand(cap, d, nv)
+    y = same_twice("moe_combine_fwd", lambda: K.moe_combine_forward(ys, gates, pos, n_valid))
+    check(torch.equal(y, K.moe_combine_ref(ys, gates, pos, n_valid)),
+          "moe_combine_fwd: differs from its plain version")
+    dy = rand(S, d)
+    dys, dg = same_twice("moe_combine_bwd",
+                         lambda: K.moe_combine_backward(dy, ys, gates, pos, n_valid))
+    dys_p, dg_p = K.moe_combine_grad_ref(dy, ys, gates, pos, n_valid)
+    check(torch.equal(dys[:nv], dys_p[:nv]), "moe_combine_bwd: dys differs from its plain version")
+    held = pos < nv
+    mass = torch.zeros_like(dg_p)
+    mass[held] = (dy.float()[held.nonzero()[:, 0]] * ys[pos[held].long()].float()).abs().sum(-1)
+    out["dgates_of_mass"] = ((dg - dg_p).abs() / mass.clamp_min(1e-30)).max().item()
+    check(bool(((dg - dg_p).abs() <= MOE_DGATE_RTOL * mass).all()),
+          f"moe_combine_bwd: dgates {out['dgates_of_mass']:.3e} of Σ|terms|")
+    check(bool((dg[~held] == 0).all()), "moe_combine_bwd: an invalid choice's dgates is not 0")
+    for what, t in (("xs", xs), ("dx", dx), ("act", act), ("dh", dh), ("y", y), ("dys", dys),
+                    ("dgates", dg)):
+        check(bool(torch.isfinite(t[:nv] if t.shape[0] == cap else t).all()),
+              f"moe dispatch: non-finite {what}")
+    # nothing written from the valid count on: each buffer output pre-filled
+    grid = K._moe_grid(dev)
+    sentinel = -7.0
+
+    def untouched(what: str, out_t, launch) -> None:
+        out_t.fill_(sentinel)
+        launch(out_t)
+        torch.cuda.synchronize()
+        check(bool((out_t[nv:] == sentinel).all()), f"{what} wrote a row past the valid count")
+
+    buf = torch.empty((cap, d), dtype=torch.bfloat16, device=dev)
+    untouched("moe_gather_fwd", buf, lambda o: K.MOE_GATHER_FWD.launch(
+        dev, x.data_ptr(), pos.data_ptr(), n_valid.data_ptr(), o.data_ptr(), S, lay["top_k"],
+        cap, d, grid))
+    untouched("moe_combine_bwd", buf, lambda o: K.MOE_COMBINE_BWD.launch(
+        dev, dy.data_ptr(), ys.data_ptr(), gates.data_ptr(), pos.data_ptr(), n_valid.data_ptr(),
+        o.data_ptr(), torch.empty_like(gates).data_ptr(), S, lay["top_k"], cap, d, grid))
+    half = torch.empty((cap, f), dtype=torch.bfloat16, device=dev)
+    untouched("moe_swiglu_fwd", half, lambda o: K.MOE_SWIGLU_FWD.launch(
+        dev, h.data_ptr(), n_valid.data_ptr(), o.data_ptr(), cap, f, grid))
+    whole = torch.empty((cap, 2 * f), dtype=torch.bfloat16, device=dev)
+    untouched("moe_swiglu_bwd", whole, lambda o: K.MOE_SWIGLU_BWD.launch(
+        dev, h.data_ptr(), dact.data_ptr(), n_valid.data_ptr(), o.data_ptr(), cap, f, grid))
+    out["tensors"] = dict(x=x, dxs=dxs, h=h, dact=dact, ys=ys, dy=dy)
+    return out
+
+
+def moe_dispatch_step(dev, steps: int = 4) -> dict:
+    """launch_counts() over the first call of the DeepSeek-V2-Lite step at
+    the cell's defaults (its two eager warm-up steps and its capture), and
+    over replays; the dispatch kernels MOE_LAUNCHES_A_LAYER times a MoE
+    layer a step, none from a replay; with the replayed step's time (CUDA
+    events over ``steps`` steps) and the pool's peak."""
+    import torch
+
+    from tpudash_torch.models import deepseek_v2 as D
+    from tpudash_torch.models import graphed
+    from tpudash_torch.ops import kernels as K
+
+    cfg = D.DeepseekV2Config()
+    gen_t = torch.Generator(device=dev).manual_seed(SEED + 18)
+    params, opt = D.make_train_state(cfg, gen_t)
+    counters = D.routing_counters(cfg, dev)
+    step = D.make_train_step(cfg, dev, counters)
+    tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=gen_t, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    loss0 = step(params, opt, tokens).item()
+    first = K.launch_counts()
+    K.reset_launch_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        loss = step(params, opt, tokens)
+    end.record()
+    end.synchronize()
+    replay = K.launch_counts()
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    counted = graphed.WARMUP_STEPS + 1
+    per_step = {k.name: first[k.name] / counted for k in K.MOE_KERNELS}
+    total = sum(per_step.values())
+    check(total == MOE_LAUNCHES_A_LAYER * n_moe,
+          f"dispatch launches a step {per_step} (sum {total}), want {MOE_LAUNCHES_A_LAYER * n_moe}")
+    check(all(v == 0 for v in replay.values()), f"a replay launched from the host: {replay}")
+    check(math.isfinite(loss0) and math.isfinite(loss.item()), "the step's loss is not finite")
+    routed = counters[:-1].sum().item() / counters[-1].item()
+    out = {"per_step": per_step, "per_step_total": total, "first_call": first, "replay": replay,
+           "step_ms": start.elapsed_time(end) / steps, "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "loss0": loss0, "valid_row_share": routed / D.dispatch_rows(cfg)}
+    del params, opt, step, counters
+    gc_cuda([dev])
+    return out
+
+
+def moe_dispatch_phase(dev, card: str, gen, timing: bool = True) -> dict:
+    """The dispatch kernels at the DeepSeek-V2-Lite cell's shapes
+    (MOE_DISPATCH_SHAPE, skewed routing): each against its plain version
+    (moe_dispatch_checks), the launches of one graphed step at the cell's
+    defaults (moe_dispatch_step); with ``timing``, each kernel's time with
+    L2 emptied before each call, beside the bound of its bytes at this
+    valid count and the PyTorch chain it replaced (the padded buffer, the
+    f32 SwiGLU, the f32 index_add into a dropped row), timed alike."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudash_torch.models import deepseek_v2 as D
+    from tpudash_torch.ops import kernels as K
+
+    lay = moe_dispatch_layout(dev, SEED + 17)
+    S, K_, d, f, nv, cap = (lay[k] for k in ("S", "top_k", "d", "f", "nv", "cap"))
+    out = {"n_valid": nv, "cap": cap, "tokens": lay["tokens"], "valid_share": nv / cap,
+           "expert_tokens": lay["counts"].tolist()}
+    checks = moe_dispatch_checks(lay, dev)
+    tensors = checks.pop("tensors")
+    out["checks"] = checks
+    print(f"moe dispatch kernels vs plain at S {S}, top-{K_} of {lay['n_experts']}, {lay['held']} "
+          f"held, d {d}, f {f} [{card}]: {nv} valid rows of {cap} ({100 * nv / cap:.2f} %), "
+          f"{lay['tokens']} tokens with a held choice, experts {out['expert_tokens']}; gather, "
+          f"its backward, combine and dys bitwise; SwiGLU {checks['swiglu_fwd_ulps']:.3f} ulp "
+          f"({100 * checks['swiglu_fwd_bitwise_share']:.2f} % bitwise), its backward "
+          f"{checks['swiglu_bwd_ulps']:.3f} ulp ({checks['swiglu_bwd_of_tol']:.3f} of its "
+          f"tolerance), dgates {checks['dgates_of_mass']:.3e} of Σ|terms|; two calls bitwise; "
+          "no row past the valid count written")
+    out["step"] = st = moe_dispatch_step(dev)
+    print(f"moe dispatch launches over the first call of the DeepSeek-V2-Lite step (2 warm-up "
+          f"steps + capture) [{card}]: a step {st['per_step']} = {st['per_step_total']}; a replay "
+          f"{st['replay']}; graphed step {st['step_ms']:.2f} ms, peak {st['peak_bytes'] / 1e9:.2f} "
+          f"GB, valid-row share {st['valid_row_share']:.4f}")
+    if not timing:
+        return out
+    t = tensors
+    pos, n_valid, gates = lay["pos"], lay["n_valid"], lay["gates"]
+    order = torch.sort(lay["slot_of"][lay["experts"]].reshape(-1), stable=True).indices[:cap]
+    valid = torch.arange(cap, device=dev) < lay["offs"][-1]
+    rows = torch.where(valid, order // K_, S)
+    xr = t["x"].clone().requires_grad_(True)
+    xs_chain = F.embedding(rows, F.pad(xr, (0, 0, 0, 1)))
+    hr = t["h"].clone().requires_grad_(True)
+    act_chain = D._swiglu(hr)
+    ysr = t["ys"].clone().requires_grad_(True)
+    gr = gates.clone().requires_grad_(True)
+
+    def combine_chain(ys_, g_):
+        g = torch.where(valid, g_.reshape(-1).gather(0, order), 0.0)
+        y = torch.zeros(S + 1, d, dtype=torch.float32, device=dev)
+        return y.index_add(0, rows, ys_.float() * g[:, None])[:S].to(torch.bfloat16)
+
+    y_chain = combine_chain(ysr, gr)
+    fns = {
+        "moe_gather_fwd": (lambda: K.moe_gather_forward(t["x"], pos, n_valid, cap),
+                           lambda: F.embedding(rows, F.pad(t["x"], (0, 0, 0, 1)))),
+        "moe_gather_bwd": (lambda: K.moe_gather_backward(t["dxs"], pos, n_valid),
+                           lambda: torch.autograd.grad(xs_chain, (xr,), t["dxs"],
+                                                       retain_graph=True)),
+        "moe_swiglu_fwd": (lambda: K.moe_swiglu_forward(t["h"], n_valid),
+                           lambda: D._swiglu(t["h"])),
+        "moe_swiglu_bwd": (lambda: K.moe_swiglu_backward(t["h"], t["dact"], n_valid),
+                           lambda: torch.autograd.grad(act_chain, (hr,), t["dact"],
+                                                       retain_graph=True)),
+        "moe_combine_fwd": (lambda: K.moe_combine_forward(t["ys"], gates, pos, n_valid),
+                            lambda: combine_chain(t["ys"], gates)),
+        "moe_combine_bwd": (lambda: K.moe_combine_backward(t["dy"], t["ys"], gates, pos, n_valid),
+                            lambda: torch.autograd.grad(y_chain, (ysr, gr), t["dy"],
+                                                        retain_graph=True)),
+    }
+    hbm = gen.hbm_gbps * 1e9
+    nbytes = moe_dispatch_bytes(lay)
+    flush = torch.ones(64 * 2**20, device=dev)
+    flush_ms = graph_ms(lambda: flush.sum(), dev)
+    # the chains by CUDA events around calls (each is milliseconds of device
+    # work, so the host stays ahead; a backward's autograd cannot be
+    # captured apart from its forward)
+    flush_events = cuda_ms({"flush": lambda: flush.sum()}, n=4, reps=5)["flush"]
+    out["timing"] = {}
+    for name, (kernel, chain) in fns.items():
+        tm = {"kernel_graph": graph_ms(kernel, dev, n=10, reps=7),
+              "kernel_cold": graph_ms(lambda kernel=kernel: (flush.sum(), kernel()), dev, n=10,
+                                      reps=7) - flush_ms,
+              "chain_cold": cuda_ms({"c": lambda chain=chain: (flush.sum(), chain())}, n=4,
+                                    reps=5)["c"] - flush_events,
+              "bound_ms": nbytes[name] / hbm * 1e3, "bytes": nbytes[name]}
+        out["timing"][name] = tm
+        print(f"{name} at the cell's shapes [{card}]: {tm['kernel_cold'] * 1e3:.2f} us with L2 "
+              f"emptied before each call ({tm['kernel_graph'] * 1e3:.2f} us warm), bound "
+              f"{tm['bound_ms'] * 1e3:.2f} us ({nbytes[name] / 1e6:.1f} MB at {nv} valid rows: "
+              f"{100 * tm['bound_ms'] / tm['kernel_cold']:.2f} % of it); the PyTorch chain it "
+              f"replaced {tm['chain_cold'] * 1e3:.2f} us")
+    del xs_chain, act_chain, y_chain, flush
+    gc_cuda([dev])
+    return out
+
+
 def graph_ms(fn, dev, n: int = 20, reps: int = 9) -> float:
     """Median ms a call of ``fn`` with ``n`` calls captured in one CUDA graph
     and replayed: device time without the host's launch cost."""
@@ -2606,6 +2940,9 @@ def main() -> int:
     # -- 3d. the norm kernels, and their launches in one capture of the tp 4 step --
     norm = norm_phase([dev] * 4, card, gen, "one card; the tp 4 step over the card named four times")
 
+    # -- 3e. the MoE dispatch kernels at the DeepSeek-V2-Lite cell's shapes ---------
+    moe_dispatch = moe_dispatch_phase(dev, card, gen)
+
     # -- 3a-3c. the exporter as deployed: prebuilt kernels with no compiler, the
     # image's build stage with no GPU, the DaemonSet's command --------------------
     with tempfile.TemporaryDirectory(prefix="tpudash-deploy-") as tmp:
@@ -2682,7 +3019,7 @@ def main() -> int:
         check(0 < r.value <= MAX_SHARE_OF_PEAK * gen.hbm_gbps,
               f"{label} bandwidth {r.value} GB/s vs peak {gen.hbm_gbps}")
     check(bench_counts == {"hbm_read": (10 + 410) * 6, "hbm_copy": (5 + 205) * 6,
-                           "rmsnorm_fwd": 0, "rmsnorm_bwd": 0},
+                           **{k.name: 0 for k in (*kernels.NORM_KERNELS, *kernels.MOE_KERNELS)}},
           f"bench launches {bench_counts}")
     print(f"probe bench path [{card}]: matmul 4096/64 {mm.value:.2f} TFLOP/s "
           f"({100 * mm.value / gen.peak_bf16_tflops:.2f} % of peak); read 256 MiB k1=10 k2=410 "
@@ -2880,10 +3217,24 @@ def main() -> int:
             "per_device_step": norm["counts"]["per_device_step"][name],
             "launches_by_path": {path: c[name] for path, c in paths.items()}})
 
+    for name, t in moe_dispatch["timing"].items():
+        entries.append({
+            "name": name, "route": "cuda", "source": "tpudash_torch/ops/csrc/moe_dispatch.cu",
+            "replaces": "none (models/deepseek_v2.py::_held_experts's padded dispatch; the "
+                        "reference's MoE is a one-hot product)",
+            "launches": moe_dispatch["step"]["first_call"][name], "max_abs_err": None,
+            "worst": moe_dispatch["checks"], "ms": t["kernel_cold"], "graph_ms": t["kernel_graph"],
+            "chain_ms": t["chain_cold"], "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "path": "DeepSeek-V2-Lite train step", "n_valid": moe_dispatch["n_valid"],
+            "cap": moe_dispatch["cap"], "per_step": moe_dispatch["step"]["per_step"][name],
+            "launches_by_path": {path: c[name] for path, c in paths.items()}})
+
     def us(v):
         return "not measured" if v is None else f"{v * 1e3:.2f} us"
 
     for e in entries:
+        if "chain_ms" in e:  # printed by moe_dispatch_phase
+            continue
         if "device_ms" not in e:
             print(f"{e['name']} at {e['shape']} bf16 [{card}]: {e['ms'] * 1e3:.2f} us with L2 "
                   f"emptied ({e['graph_ms'] * 1e3:.2f} us warm), bound {e['bound_ms'] * 1e3:.2f} us "

@@ -213,6 +213,8 @@ def test_the_runner_trains_the_model_on_the_cpu_and_refuses_two_devices():
         assert m["steps"] >= 4 and math.isfinite(m["loss"])
         assert len(m["moe_tokens_per_held_expert"]) == 8
         assert sum(m["moe_tokens_per_held_expert"]) > 0 and m["moe_load_max_over_mean"] >= 1.0
+        # held pairs ÷ the sorted buffers' rows, S·min(K, held) a MoE layer
+        assert 0 < m["moe_valid_row_share"] <= 1.0
         assert m["achieved_tflops"] > 0
     finally:
         runner.stop()

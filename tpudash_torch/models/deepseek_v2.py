@@ -23,11 +23,18 @@ recomputed in backward, as ``workload.forward`` does.
   experts it holds (``experts_held``): it routes over all of them and
   computes only its own experts' part, with no stand-in for the others.
   The dispatch is index-based and drops no token: the (token, choice) pairs
-  are sorted by held expert, the tokens gathered, the experts' SwiGLUs run
-  as two grouped products over the sorted rows (``torch._grouped_mm`` with
-  each expert's end offset on the device), and the results added back
-  with their gates.  Every shape is static (the sorted buffer has room for
-  every token's choices), so the step is one CUDA graph.
+  are sorted stably by held expert into a buffer with room for every
+  token's held choices, ``cap = S·min(top_k, n_held)`` rows, of which the
+  first ``n_valid`` (the last of the experts' end offsets) are valid; the
+  tokens are gathered into it, the experts' SwiGLUs run as two grouped
+  products over the sorted rows (``torch._grouped_mm`` with each expert's
+  end offset on the device), and each token adds its experts' outputs
+  times its gates, token-major (``pos``, the inverse of the sort, gives
+  the row of each of its choices).  On GPUs the gather, the SwiGLU between
+  the products and the gated combine, and their backwards, are hand-written
+  kernels (``ops/csrc/moe_dispatch.cu``) that read ``n_valid`` on the
+  device and touch valid rows only; there is no dropped row and no atomic
+  add.  Every shape is static, so the step is one CUDA graph.
 - **Loss**: cross-entropy plus ``aux_loss_alpha`` times the sequence-wise
   expert-balance loss of every MoE layer (the released code's
   ``seq_aux``), over all the router's outputs.  The released code leaves
@@ -37,8 +44,11 @@ recomputed in backward, as ``workload.forward`` does.
 Precision: bf16 weights and activations, each product's f32 sums rounded
 to bf16; the router's weights f32 (as ``moe.py`` keeps them; the released
 code keeps them in the model's dtype and computes the gate in f32);
-RMSNorm, RoPE, the attention softmax, SwiGLU's gate, the router's softmax,
-the gates' combine and the loss in f32; norms' scales f32.  The logits are
+RMSNorm, RoPE, the attention softmax, SwiGLU's gate (rounded once), the
+router's softmax, the gates' combine (each gate applied in f32 to the down
+product's output, the sum over a token's choices in f32 in choice order,
+rounded once to bf16 before the shared experts' output is added) and the
+loss in f32; norms' scales f32.  The logits are
 the unembedding product rounded to bf16, then f32, as the released code's
 ``lm_head(h).float()``.
 
@@ -61,6 +71,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tpudash_torch.models import moe, workload
 from tpudash_torch.models.graphed import compiled
+from tpudash_torch.ops import kernels
 
 
 @dataclass(frozen=True)
@@ -316,37 +327,45 @@ def seq_balance_loss(probs: torch.Tensor, experts: torch.Tensor, batch: int,
     return (load * p.mean(1)).sum(1).mean()
 
 
+def dispatch_layout(experts: torch.Tensor, slot_of: torch.Tensor, n_held: int) -> tuple:
+    """Where the (token, choice) pairs of ``experts`` (S, K) lie in the
+    buffer sorted stably by held slot (``slot_of`` maps each routed expert
+    to its slot, or to ``n_held`` where another GPU holds it): (tokens a
+    held expert (n_held,) int64, each expert's end offset (n_held,) int32,
+    the valid rows ``offs[-1:]``, ``pos`` (S, K) int32 the row of each
+    pair).  A pair is held iff its row is below the valid count."""
+    S, K = experts.shape
+    slots = slot_of[experts].reshape(-1)  # (S·K,)
+    counts = torch.zeros(n_held + 1, dtype=torch.int64, device=experts.device)
+    counts.scatter_add_(0, slots, torch.ones_like(slots))
+    offs = counts[:n_held].cumsum(0).to(torch.int32)
+    order = torch.sort(slots, stable=True).indices
+    pos = torch.empty(S * K, dtype=torch.int32, device=experts.device)
+    pos.scatter_(0, order, torch.arange(S * K, dtype=torch.int32, device=experts.device))
+    return counts[:n_held], offs, offs[-1:], pos.view(S, K)
+
+
 def _held_experts(x, gates, experts, slot_of, lp: dict, cfg: DeepseekV2Config) -> tuple:
     """The held experts' part of the routed FFN for the tokens x (S, d):
     (y (S, d) bf16, tokens a held expert (n_held,) int64).
 
-    ``slot_of`` maps each routed expert to its held slot, or to ``n_held``
-    where another GPU holds it.  The S·K (token, choice) pairs sort stably
-    by slot; the first ``cap = S·min(K, n_held)`` sorted pairs have room for
-    every held pair, and the valid ones are the first Σ counts.  Rows past
-    them (their inputs a zero row, their results whatever the grouped
-    products leave there) go to a dropped row on the way back, in both
-    directions of autograd."""
+    The S·K (token, choice) pairs sort stably by held slot
+    (:func:`dispatch_layout`); the first ``cap = S·min(K, n_held)`` sorted
+    pairs have room for every held pair, and the valid ones are the first
+    Σ counts.  The gather, the SwiGLU and the combine
+    (``kernels.moe_gather``, ``moe_swiglu``, ``moe_combine``) touch valid
+    rows only, in both directions of autograd; the grouped products compute
+    only their groups, so no row past them is read."""
     S, K, n = x.shape[0], cfg.top_k, cfg.n_held
     cap = S * min(K, n)
     with record_function("dsv2.moe.dispatch"):
-        slots = slot_of[experts].reshape(-1)  # (S·K,)
-        counts = torch.zeros(n + 1, dtype=torch.int64, device=x.device)
-        counts.scatter_add_(0, slots, torch.ones_like(slots))
-        offs = counts[:n].cumsum(0)
-        order = torch.sort(slots, stable=True).indices[:cap]
-        valid = torch.arange(cap, device=x.device) < offs[-1]
-        rows = torch.where(valid, order // K, S)  # S: the dropped row
-        xs = F.embedding(rows, F.pad(x, (0, 0, 0, 1)))
+        counts, offs, n_valid, pos = dispatch_layout(experts, slot_of, n)
+        xs = kernels.moe_gather(x, pos, n_valid, cap)
     with record_function("dsv2.moe.experts"):
-        offs32 = offs.to(torch.int32)
-        h = _swiglu(torch._grouped_mm(xs, lp["expert_gate_up"], offs=offs32))
-        ys = torch._grouped_mm(h, lp["expert_down"], offs=offs32)
+        h = kernels.moe_swiglu(torch._grouped_mm(xs, lp["expert_gate_up"], offs=offs), n_valid)
+        ys = torch._grouped_mm(h, lp["expert_down"], offs=offs)
     with record_function("dsv2.moe.combine"):
-        g = torch.where(valid, gates.reshape(-1).gather(0, order), 0.0)
-        y = torch.zeros(S + 1, x.shape[1], dtype=torch.float32, device=x.device)
-        y = y.index_add(0, rows, ys.float() * g[:, None])
-        return y[:S].to(torch.bfloat16), counts[:n]
+        return kernels.moe_combine(ys, gates, pos, n_valid), counts
 
 
 def _moe_ffn(x, lp: dict, slot_of, cfg: DeepseekV2Config) -> tuple:
@@ -450,19 +469,34 @@ def train_step(params: dict, optimizer: torch.optim.Optimizer, tokens: torch.Ten
 
 def make_train_step(cfg: DeepseekV2Config, device, counters: torch.Tensor):
     """``step(params, optimizer, tokens)``, ``graphed.compiled``: on a GPU
-    one CUDA graph, captured at its first call; on the CPU eager."""
+    one CUDA graph, captured at its first call; on the CPU eager.  On a GPU
+    the norm's and the dispatch's kernels are built (or loaded) first, the
+    two nvcc runs side by side."""
+    if torch.device(device).type == "cuda":
+        kernels.build_kernels((*kernels.NORM_KERNELS, *kernels.MOE_KERNELS))
     consts = Constants(cfg, device)
     return compiled(lambda p, o, t: train_step(p, o, t, cfg, consts, counters))
 
 
-def load_stats(counters: list, steps: int) -> dict:
+def dispatch_rows(cfg: DeepseekV2Config) -> int:
+    """Rows of the MoE layers' sorted buffers a step, summed over the
+    layers: ``S·min(top_k, n_held)`` a layer, S = batch · (seq − 1)."""
+    S = cfg.batch * (cfg.seq - 1)
+    return S * min(cfg.top_k, cfg.n_held) * (cfg.n_layers - cfg.first_k_dense)
+
+
+def load_stats(counters: list, steps: int, cfg: DeepseekV2Config) -> dict:
     """From two readings of :func:`routing_counters` apart (host lists), the
     runner's series: tokens a held expert a step (summed over the layers),
-    and the busiest held expert over the mean of them."""
+    the busiest held expert over the mean of them, and the share of the
+    sorted buffers' rows that were valid (the rows the dispatch kernels
+    touch, of :func:`dispatch_rows`)."""
     per = [c / steps for c in counters] if steps else [0.0] * len(counters)
     mean = sum(per) / len(per) if per else 0.0
+    rows = dispatch_rows(cfg)
     return {"moe_tokens_per_held_expert": per,
-            "moe_load_max_over_mean": max(per) / mean if mean > 0 else 0.0}
+            "moe_load_max_over_mean": max(per) / mean if mean > 0 else 0.0,
+            "moe_valid_row_share": sum(per) / rows if rows > 0 else 0.0}
 
 
 def flops_per_step(cfg: DeepseekV2Config, routed_tokens_per_step: float | None = None) -> float:

@@ -182,7 +182,7 @@ class WorkloadRunner:
                 if counters is not None:  # read after the sync: no extra one
                     now = counters.tolist()
                     delta = [a - b for a, b in zip(now, last_counts)]
-                    routing = dsv2.load_stats(delta[:-1], delta[-1])
+                    routing = dsv2.load_stats(delta[:-1], delta[-1], cfg)
                     last_counts = now
                 with self._lock:
                     if routing is not None:

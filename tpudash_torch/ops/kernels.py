@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the probes and the model step: loader,
 wrappers, plain versions.
 
-Four kernels, from three CUDA C++ sources under ``csrc/``:
+Ten kernels, from four CUDA C++ sources under ``csrc/``:
 
 - ``hbm_read`` (``csrc/hbm_read.cu``) replaces the Pallas
   ``_hbm_read_kernel``: ``out(1, cols) = prev + Σ_rows x``.
@@ -12,6 +12,13 @@ Four kernels, from three CUDA C++ sources under ``csrc/``:
   RMSNorm and its gradient, each row read once; :func:`rmsnorm` is the
   autograd function over them and :func:`_norm_plan` their launch.  They
   replace no Pallas kernel: the reference leaves the norm to XLA's fusion.
+- ``moe_gather_fwd``/``_bwd``, ``moe_swiglu_fwd``/``_bwd`` and
+  ``moe_combine_fwd``/``_bwd`` (``csrc/moe_dispatch.cu``): the dropless MoE
+  dispatch of ``models/deepseek_v2.py`` over the valid rows of its sorted
+  buffer only, the count read on the device; :func:`moe_gather`,
+  :func:`moe_swiglu` and :func:`moe_combine` are the autograd functions
+  over them.  They replace no Pallas kernel either: the reference's MoE is
+  a dense one-hot product.
 
 Build: the first time a kernel is asked for on a CUDA tensor, ``nvcc``
 compiles its source for ``sm_90a`` into a shared library with a plain C
@@ -26,7 +33,9 @@ raises if the launch returns a CUDA error; and adds one to its kernel's
 ``launches``.  The probes' wrappers send a tensor that lies on the CPU to
 the plain version; the norm's raise on it, and their caller
 (``models/workload.py::_rmsnorm``) sends CPU tensors to :func:`rmsnorm_ref`.
-There is no fallback from the card to the plain version.
+The MoE dispatch's autograd functions run their plain versions on CPU
+tensors and the kernels on CUDA tensors, whose wrappers raise on anything
+else.  There is no fallback from the card to the plain version.
 """
 
 from __future__ import annotations
@@ -157,7 +166,42 @@ RMSNORM_BWD = CudaKernel(
     # x, scale, g, dx, partial, dscale, rows, d, then vecs, warps, backward_grid
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
 )
-KERNELS: tuple[CudaKernel, ...] = (HBM_READ, HBM_COPY, RMSNORM_FWD, RMSNORM_BWD)
+#: the MoE dispatch's kernels (csrc/moe_dispatch.cu); every one ends in the
+#: grid, and those over tokens take S, K, cap and d before it
+MOE_GATHER_FWD = CudaKernel(
+    "moe_gather_fwd", "moe_dispatch.cu", "tpudash_moe_gather_forward",
+    # x, pos, n_valid, xs
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5,
+)
+MOE_GATHER_BWD = CudaKernel(
+    "moe_gather_bwd", "moe_dispatch.cu", "tpudash_moe_gather_backward",
+    # dxs, pos, n_valid, dx
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5,
+)
+MOE_SWIGLU_FWD = CudaKernel(
+    "moe_swiglu_fwd", "moe_dispatch.cu", "tpudash_moe_swiglu_forward",
+    # h, n_valid, act, then cap, f, grid
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3,
+)
+MOE_SWIGLU_BWD = CudaKernel(
+    "moe_swiglu_bwd", "moe_dispatch.cu", "tpudash_moe_swiglu_backward",
+    # h, dact, n_valid, dh, then cap, f, grid
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3,
+)
+MOE_COMBINE_FWD = CudaKernel(
+    "moe_combine_fwd", "moe_dispatch.cu", "tpudash_moe_combine_forward",
+    # ys, gates, pos, n_valid, y
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5,
+)
+MOE_COMBINE_BWD = CudaKernel(
+    "moe_combine_bwd", "moe_dispatch.cu", "tpudash_moe_combine_backward",
+    # dy, ys, gates, pos, n_valid, dys, dgates
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5,
+)
+NORM_KERNELS: tuple[CudaKernel, ...] = (RMSNORM_FWD, RMSNORM_BWD)
+MOE_KERNELS: tuple[CudaKernel, ...] = (MOE_GATHER_FWD, MOE_GATHER_BWD, MOE_SWIGLU_FWD,
+                                       MOE_SWIGLU_BWD, MOE_COMBINE_FWD, MOE_COMBINE_BWD)
+KERNELS: tuple[CudaKernel, ...] = (HBM_READ, HBM_COPY, *NORM_KERNELS, *MOE_KERNELS)
 
 
 def build_kernels(kernels: "list[CudaKernel] | tuple[CudaKernel, ...]" = KERNELS) -> float:
@@ -482,3 +526,305 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     arguments; raises on what the kernels do not take, a CPU tensor
     included."""
     return _RMSNorm.apply(x, scale)
+
+
+# --- MoE dispatch ----------------------------------------------------------------
+#
+# The (token, choice) pairs of a MoE layer sorted by held expert fill the
+# first n_valid rows of a buffer of ``cap`` rows; ``pos`` (S, K) int32 is
+# the inverse of that sort (the row of token t's choice k), ``n_valid`` a
+# one-element int32 tensor on the device (the grouped products' last
+# offset).  A choice is valid when its row is below n_valid.  Nothing here
+# reads or writes a row from n_valid on: the kernels leave such rows of
+# their outputs unwritten, the plain versions fill them with NaN so that a
+# read of one shows.
+
+#: the most choices a token may make that the dispatch kernels take
+MOE_MAX_TOP_K = 8
+#: the dispatch kernels' persistent grid: blocks on each SM
+MOE_CTAS_PER_SM = 4
+
+
+def _valid_count(n_valid: torch.Tensor) -> int:
+    return int(n_valid.reshape(-1)[0])
+
+
+def _choices(pos: torch.Tensor, n: int):
+    """(k, rows, mask) for each choice k: the rows of the tokens' choice k
+    and which of them are valid."""
+    for k in range(pos.shape[1]):
+        rows = pos[:, k].long()
+        yield k, rows, rows < n
+
+
+def moe_gather_ref(x: torch.Tensor, pos: torch.Tensor, n_valid: torch.Tensor,
+                   cap: int) -> torch.Tensor:
+    """Plain version of the gather: ``xs (cap, d)`` with ``xs[pos[t, k]] =
+    x[t]`` for each valid choice."""
+    n = _valid_count(n_valid)
+    xs = x.new_full((cap, x.shape[1]), float("nan"))
+    for _, rows, m in _choices(pos, n):
+        xs[rows[m]] = x[m]
+    return xs
+
+
+def moe_gather_grad_ref(dxs: torch.Tensor, pos: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of the gather's backward: ``dx (S, d)``, each token's
+    valid rows of ``dxs`` added in f32 in k order, rounded once to bf16."""
+    n = _valid_count(n_valid)
+    acc = torch.zeros((pos.shape[0], dxs.shape[1]), dtype=torch.float32, device=dxs.device)
+    for _, rows, m in _choices(pos, n):
+        acc[m] += dxs[rows[m]].float()
+    return acc.to(torch.bfloat16)
+
+
+def moe_swiglu_ref(h: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of the SwiGLU over the valid rows of ``h`` (gate's
+    columns, then up's): ``bf16(silu(f32 gate) · f32 up)``."""
+    n, f = _valid_count(n_valid), h.shape[1] // 2
+    act = h.new_full((h.shape[0], f), float("nan"))
+    gate, up = h[:n].float().chunk(2, dim=-1)
+    act[:n] = (torch.nn.functional.silu(gate) * up).to(torch.bfloat16)
+    return act
+
+
+def moe_swiglu_grad_ref(h: torch.Tensor, dact: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of the SwiGLU's backward: ``dh`` (gate's half, then
+    up's), autograd's f32 chain of the forward's expression, each half
+    rounded once."""
+    n, f = _valid_count(n_valid), h.shape[1] // 2
+    gate, up = h[:n].float().chunk(2, dim=-1)
+    da = dact[:n].float()
+    dh = h.new_full(h.shape, float("nan"))
+    dh[:n, :f] = torch.ops.aten.silu_backward(da * up, gate).to(torch.bfloat16)
+    dh[:n, f:] = (da * torch.nn.functional.silu(gate)).to(torch.bfloat16)
+    return dh
+
+
+def moe_combine_ref(ys: torch.Tensor, gates: torch.Tensor, pos: torch.Tensor,
+                    n_valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of the combine: ``y (S, d)``, each token's valid rows
+    of ``ys`` times their f32 gates, added in f32 in k order, rounded once
+    to bf16; a token with no valid choice gets zeros."""
+    n = _valid_count(n_valid)
+    acc = torch.zeros((pos.shape[0], ys.shape[1]), dtype=torch.float32, device=ys.device)
+    for k, rows, m in _choices(pos, n):
+        acc[m] += gates[m, k, None] * ys[rows[m]].float()
+    return acc.to(torch.bfloat16)
+
+
+def moe_combine_grad_ref(dy: torch.Tensor, ys: torch.Tensor, gates: torch.Tensor,
+                         pos: torch.Tensor, n_valid: torch.Tensor) -> tuple:
+    """Plain version of the combine's backward: ``(dys, dgates)``, each
+    valid choice's row of dys its token's gradient times the gate, rounded
+    once, and its gate's gradient the f32 dot of the two rows (0 for an
+    invalid choice)."""
+    n = _valid_count(n_valid)
+    dy32 = dy.float()
+    dys = ys.new_full(ys.shape, float("nan"))
+    dgates = torch.zeros(gates.shape, dtype=torch.float32, device=gates.device)
+    for k, rows, m in _choices(pos, n):
+        dys[rows[m]] = (gates[m, k, None] * dy32[m]).to(torch.bfloat16)
+        dgates[m, k] = (dy32[m] * ys[rows[m]].float()).sum(-1)
+    return dys, dgates
+
+
+def _check_moe_args(rows: dict, pos: "torch.Tensor | None", n_valid: torch.Tensor,
+                    gates: "torch.Tensor | None" = None) -> None:
+    """bf16 ``rows`` tensors (2-D, width a multiple of 8), int32 ``pos`` (S,
+    K), f32 ``gates`` (S, K), a one-element int32 ``n_valid``; all
+    contiguous, on one CUDA device."""
+    tensors = dict(rows)
+    for what, t in rows.items():
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the dispatch kernels take bf16 {what}, got {t.dtype}")
+        if t.dim() != 2 or t.shape[1] < 8 or t.shape[1] % 8:
+            raise ValueError(f"{what} must be 2-D with a width that is a multiple of 8, got "
+                             f"{tuple(t.shape)}")
+    if pos is not None:
+        tensors["pos"] = pos
+        if pos.dtype != torch.int32 or pos.dim() != 2:
+            raise TypeError(f"pos must be (S, K) int32, got {tuple(pos.shape)} {pos.dtype}")
+        if not 1 <= pos.shape[1] <= MOE_MAX_TOP_K or pos.numel() >= 2**31:
+            raise ValueError(f"the dispatch kernels take 1 to {MOE_MAX_TOP_K} choices a token and "
+                             f"fewer than 2**31 pairs, got pos {tuple(pos.shape)}")
+    if gates is not None:
+        tensors["gates"] = gates
+        if gates.dtype != torch.float32 or gates.shape != pos.shape:
+            raise TypeError(f"gates must be f32 of pos's shape {tuple(pos.shape)}, got "
+                            f"{tuple(gates.shape)} {gates.dtype}")
+    if n_valid.dtype != torch.int32 or n_valid.numel() != 1:
+        raise TypeError(f"n_valid must be one int32, got {tuple(n_valid.shape)} {n_valid.dtype}")
+    tensors["n_valid"] = n_valid
+    if not all(t.is_contiguous() for t in tensors.values()):
+        raise ValueError("the dispatch kernels take contiguous tensors")
+    dev = n_valid.device
+    if dev.type != "cuda":
+        raise ValueError(f"the dispatch kernels run on CUDA devices, not {dev}; the moe_*_ref "
+                         "functions are their plain versions")
+    if any(t.device != dev for t in tensors.values()):
+        raise ValueError(f"tensors on {[str(t.device) for t in tensors.values()]}: one device")
+    for what, t in rows.items():
+        _check_card_tensor(t, what)
+    if any(t.shape[0] >= 2**31 for t in rows.values()):
+        raise ValueError("the dispatch kernels take fewer than 2**31 rows")
+
+
+def _moe_grid(device: torch.device) -> int:
+    return _sm_count(device.index) * MOE_CTAS_PER_SM
+
+
+def _token_rows(pos: torch.Tensor, what: str, t: torch.Tensor) -> None:
+    if t.shape[0] != pos.shape[0]:
+        raise ValueError(f"{what} must have a row for each of pos's {pos.shape[0]} tokens, "
+                         f"got {tuple(t.shape)}")
+
+
+def moe_gather_forward(x: torch.Tensor, pos: torch.Tensor, n_valid: torch.Tensor,
+                       cap: int) -> torch.Tensor:
+    """The gather kernel: :func:`moe_gather_ref`'s valid rows, in a new
+    (cap, d) bf16 tensor whose other rows are left unwritten."""
+    _check_moe_args({"x": x}, pos, n_valid)
+    _token_rows(pos, "x", x)
+    if not 0 <= cap < 2**31:
+        raise ValueError(f"cap must lie in [0, 2**31), got {cap}")
+    xs = torch.empty((cap, x.shape[1]), dtype=x.dtype, device=x.device)
+    _check_card_tensor(xs, "xs")
+    S, K = pos.shape
+    MOE_GATHER_FWD.launch(x.device, x.data_ptr(), pos.data_ptr(), n_valid.data_ptr(),
+                          xs.data_ptr(), S, K, cap, x.shape[1], _moe_grid(x.device))
+    return xs
+
+
+def moe_gather_backward(dxs: torch.Tensor, pos: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """The gather's backward kernel: :func:`moe_gather_grad_ref`, every
+    token's row written."""
+    _check_moe_args({"dxs": dxs}, pos, n_valid)
+    S, K = pos.shape
+    dx = torch.empty((S, dxs.shape[1]), dtype=dxs.dtype, device=dxs.device)
+    MOE_GATHER_BWD.launch(dxs.device, dxs.data_ptr(), pos.data_ptr(), n_valid.data_ptr(),
+                          dx.data_ptr(), S, K, dxs.shape[0], dxs.shape[1], _moe_grid(dxs.device))
+    return dx
+
+
+def moe_swiglu_forward(h: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU kernel: :func:`moe_swiglu_ref`'s valid rows, in a new (cap,
+    f) bf16 tensor whose other rows are left unwritten."""
+    _check_moe_args({"h": h}, None, n_valid)
+    f = h.shape[1] // 2
+    if f % 8:
+        raise ValueError(f"h's halves must be a multiple of 8 wide, got {tuple(h.shape)}")
+    act = torch.empty((h.shape[0], f), dtype=h.dtype, device=h.device)
+    MOE_SWIGLU_FWD.launch(h.device, h.data_ptr(), n_valid.data_ptr(), act.data_ptr(),
+                          h.shape[0], f, _moe_grid(h.device))
+    return act
+
+
+def moe_swiglu_backward(h: torch.Tensor, dact: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU's backward kernel: :func:`moe_swiglu_grad_ref`'s valid
+    rows, in a new tensor of h's shape whose other rows are left unwritten."""
+    _check_moe_args({"h": h, "dact": dact}, None, n_valid)
+    f = h.shape[1] // 2
+    if f % 8 or tuple(dact.shape) != (h.shape[0], f):
+        raise ValueError(f"h {tuple(h.shape)} must have halves a multiple of 8 wide, and dact "
+                         f"their shape, got {tuple(dact.shape)}")
+    dh = torch.empty_like(h)
+    MOE_SWIGLU_BWD.launch(h.device, h.data_ptr(), dact.data_ptr(), n_valid.data_ptr(),
+                          dh.data_ptr(), h.shape[0], f, _moe_grid(h.device))
+    return dh
+
+
+def moe_combine_forward(ys: torch.Tensor, gates: torch.Tensor, pos: torch.Tensor,
+                        n_valid: torch.Tensor) -> torch.Tensor:
+    """The combine kernel: :func:`moe_combine_ref`, every token's row
+    written."""
+    _check_moe_args({"ys": ys}, pos, n_valid, gates)
+    S, K = pos.shape
+    y = torch.empty((S, ys.shape[1]), dtype=ys.dtype, device=ys.device)
+    MOE_COMBINE_FWD.launch(ys.device, ys.data_ptr(), gates.data_ptr(), pos.data_ptr(),
+                           n_valid.data_ptr(), y.data_ptr(), S, K, ys.shape[0], ys.shape[1],
+                           _moe_grid(ys.device))
+    return y
+
+
+def moe_combine_backward(dy: torch.Tensor, ys: torch.Tensor, gates: torch.Tensor,
+                         pos: torch.Tensor, n_valid: torch.Tensor) -> tuple:
+    """The combine's backward kernel: :func:`moe_combine_grad_ref`, dys's
+    invalid rows left unwritten."""
+    _check_moe_args({"dy": dy, "ys": ys}, pos, n_valid, gates)
+    _token_rows(pos, "dy", dy)
+    if dy.shape[1] != ys.shape[1]:
+        raise ValueError(f"dy {tuple(dy.shape)} and ys {tuple(ys.shape)} differ in width")
+    S, K = pos.shape
+    dys = torch.empty_like(ys)
+    dgates = torch.empty((S, K), dtype=torch.float32, device=ys.device)
+    MOE_COMBINE_BWD.launch(ys.device, dy.data_ptr(), ys.data_ptr(), gates.data_ptr(),
+                           pos.data_ptr(), n_valid.data_ptr(), dys.data_ptr(), dgates.data_ptr(),
+                           S, K, ys.shape[0], ys.shape[1], _moe_grid(ys.device))
+    return dys, dgates
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+class _MoEGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pos, n_valid, cap):
+        ctx.save_for_backward(pos, n_valid)
+        return (moe_gather_ref if _on_cpu(x) else moe_gather_forward)(x, pos, n_valid, cap)
+
+    @staticmethod
+    def backward(ctx, dxs):
+        pos, n_valid = ctx.saved_tensors
+        dxs = dxs.contiguous()
+        grad = moe_gather_grad_ref if _on_cpu(dxs) else moe_gather_backward
+        return grad(dxs, pos, n_valid), None, None, None
+
+
+class _MoESwiGLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, n_valid):
+        ctx.save_for_backward(h, n_valid)
+        return (moe_swiglu_ref if _on_cpu(h) else moe_swiglu_forward)(h, n_valid)
+
+    @staticmethod
+    def backward(ctx, dact):
+        h, n_valid = ctx.saved_tensors
+        grad = moe_swiglu_grad_ref if _on_cpu(h) else moe_swiglu_backward
+        return grad(h, dact.contiguous(), n_valid), None
+
+
+class _MoECombine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ys, gates, pos, n_valid):
+        ctx.save_for_backward(ys, gates, pos, n_valid)
+        return (moe_combine_ref if _on_cpu(ys) else moe_combine_forward)(ys, gates, pos, n_valid)
+
+    @staticmethod
+    def backward(ctx, dy):
+        ys, gates, pos, n_valid = ctx.saved_tensors
+        grad = moe_combine_grad_ref if _on_cpu(ys) else moe_combine_backward
+        dys, dgates = grad(dy.contiguous(), ys, gates, pos, n_valid)
+        return dys, dgates, None, None
+
+
+def moe_gather(x: torch.Tensor, pos: torch.Tensor, n_valid: torch.Tensor, cap: int) -> torch.Tensor:
+    """The tokens ``x`` (S, d) gathered into the sorted buffer (cap, d),
+    differentiable in x: :func:`moe_gather_ref` and its backward on CPU
+    tensors, the kernels on CUDA tensors (raising on what they do not take)."""
+    return _MoEGather.apply(x, pos, n_valid, cap)
+
+
+def moe_swiglu(h: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU of the sorted buffer's gate/up product ``h`` (cap, 2f),
+    differentiable in h; plain versions on the CPU, kernels on GPUs."""
+    return _MoESwiGLU.apply(h, n_valid)
+
+
+def moe_combine(ys: torch.Tensor, gates: torch.Tensor, pos: torch.Tensor,
+                n_valid: torch.Tensor) -> torch.Tensor:
+    """Each token's experts' outputs (rows of ``ys``) times its gates,
+    added: (S, d) bf16, differentiable in ys and gates; plain versions on
+    the CPU, kernels on GPUs."""
+    return _MoECombine.apply(ys, gates, pos, n_valid)
