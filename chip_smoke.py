@@ -27,6 +27,18 @@ From the root of a checkout, on a host with one H100:
    written; the launches of the cell's graphed step (9 a MoE layer, 234 a
    step); each kernel's time with L2 emptied beside the bound of its bytes
    at that valid count and the PyTorch chain it replaced;
+3f. holds MLA's RoPE and q/k assembly kernels (csrc/mla_rope.cu) against the
+   chain they replaced at the cell's shapes (8 × 4,095 tokens, 16 heads of
+   128 + 64, v 128, latent 512) and at two small ones: q and k bitwise; the
+   autograd function through SDPA, its backward fed dq, dk and dv as SDPA
+   returns them and also token-major and head-major: dq_raw and dkv bitwise
+   autograd's, the shared rope key's gradient within a bf16 ulp, two calls
+   bitwise; 54 forward and 27 backward launches in the graphed step (315
+   with the dispatch's); each kernel's time with L2 emptied beside its
+   bytes' bound and the chain's; one eager step under the profiler, its
+   cats, copies, f32 products, bf16 adds and fills by kind, over the step
+   and under the dsv2.mla spans (tools/dsv2_profile.py gives the same for
+   another checkout);
 3a. loads the kernels as the exporter image does, with no compiler: a fresh
    process with nvcc off PATH and CUDA_HOME=/nonexistent loads phase 2's
    libraries, launches each kernel once and matches its plain version; the same
@@ -1697,7 +1709,18 @@ act = kernels.moe_swiglu_forward(hm, n_valid)
 dhm = kernels.moe_swiglu_backward(hm, act, n_valid)
 ym = kernels.moe_combine_forward(xs, gm, pos, n_valid)
 dys, dgm = kernels.moe_combine_backward(ym, xs, gm, pos, n_valid)
+# MLA's two at B 2, T 5, H 4, nope 16, rope 8, v 16, r 32
+qr = torch.randn((2, 5, 4, 24), generator=g, device=dev).bfloat16()
+kvm = torch.randn((2, 5, 4, 32), generator=g, device=dev).bfloat16()
+kva = torch.randn((2, 5, 40), generator=g, device=dev).bfloat16()
+cs, sn = torch.rand((5, 8), generator=g, device=dev), torch.rand((5, 8), generator=g, device=dev)
+qm, km = kernels.mla_rope_forward(qr, kvm, kva, cs, sn)
+grads = kernels.mla_rope_backward(qm, km, kvm[..., 16:], cs, sn, 32)
 torch.cuda.synchronize()
+mla_ok = (all(torch.equal(a, b) for a, b in zip(
+              (qm, km), kernels.mla_qk_rope_ref(qr, kvm, kva, cs, sn)))
+          and all(torch.equal(a, b) for a, b in zip(
+              grads, kernels.mla_rope_grads_ref(qm, km, kvm[..., 16:], cs, sn, 32))))
 moe_ok = (torch.equal(xs[:nv], kernels.moe_gather_ref(xm, pos, n_valid, cap)[:nv])
           and torch.equal(dxm, kernels.moe_gather_grad_ref(xs, pos, n_valid))
           and torch.equal(ym, kernels.moe_combine_ref(xs, gm, pos, n_valid))
@@ -1710,7 +1733,7 @@ print(json.dumps({
     "copy_exact": torch.equal(copied, kernels.copy_ref(x)),
     "norm_ok": bool(((y.float() - y_ref).abs() <= ulp).all() and torch.isfinite(dscale).all()
                     and torch.isfinite(dh.float()).all()),
-    "moe_ok": moe_ok,
+    "moe_ok": moe_ok, "mla_ok": mla_ok,
 }))
 """
 
@@ -1753,6 +1776,7 @@ def check_kernel_child(what: str, rc: int, out: list, err: str, tree: Path) -> d
           f"{what}: launches {got['launches']}")
     check(got["norm_ok"], f"{what}: the norm's forward off its plain version")
     check(got["moe_ok"], f"{what}: a dispatch kernel off its plain version")
+    check(got["mla_ok"], f"{what}: an MLA kernel off its plain version")
     check(got["read_ok"], f"{what}: hbm_read max err {got['read_err']:.3e} above its tolerance")
     check(got["copy_exact"], f"{what}: hbm_copy not exact")
     return got
@@ -2639,12 +2663,13 @@ def moe_dispatch_checks(lay: dict, dev) -> dict:
     return out
 
 
-def moe_dispatch_step(dev, steps: int = 4) -> dict:
+def dsv2_step_launches(dev, steps: int = 4) -> dict:
     """launch_counts() over the first call of the DeepSeek-V2-Lite step at
     the cell's defaults (its two eager warm-up steps and its capture), and
     over replays; the dispatch kernels MOE_LAUNCHES_A_LAYER times a MoE
-    layer a step, none from a replay; with the replayed step's time (CUDA
-    events over ``steps`` steps) and the pool's peak."""
+    layer a step and MLA's MLA_LAUNCHES_A_LAYER times a layer, none from a
+    replay; with the replayed step's time (CUDA events over ``steps``
+    steps) and the pool's peak."""
     import torch
 
     from tpudash_torch.models import deepseek_v2 as D
@@ -2671,10 +2696,14 @@ def moe_dispatch_step(dev, steps: int = 4) -> dict:
     replay = K.launch_counts()
     n_moe = cfg.n_layers - cfg.first_k_dense
     counted = graphed.WARMUP_STEPS + 1
-    per_step = {k.name: first[k.name] / counted for k in K.MOE_KERNELS}
+    per_step = {k.name: first[k.name] / counted for k in (*K.MOE_KERNELS, *K.MLA_KERNELS)}
+    moe = sum(per_step[k.name] for k in K.MOE_KERNELS)
+    check(moe == MOE_LAUNCHES_A_LAYER * n_moe,
+          f"dispatch launches a step {per_step} (sum {moe}), want {MOE_LAUNCHES_A_LAYER * n_moe}")
+    want_mla = {name: n * cfg.n_layers for name, n in MLA_LAUNCHES_A_LAYER.items()}
+    check({k.name: per_step[k.name] for k in K.MLA_KERNELS} == want_mla,
+          f"MLA launches a step {per_step}, want {want_mla}")
     total = sum(per_step.values())
-    check(total == MOE_LAUNCHES_A_LAYER * n_moe,
-          f"dispatch launches a step {per_step} (sum {total}), want {MOE_LAUNCHES_A_LAYER * n_moe}")
     check(all(v == 0 for v in replay.values()), f"a replay launched from the host: {replay}")
     check(math.isfinite(loss0) and math.isfinite(loss.item()), "the step's loss is not finite")
     routed = counters[:-1].sum().item() / counters[-1].item()
@@ -2690,7 +2719,7 @@ def moe_dispatch_phase(dev, card: str, gen, timing: bool = True) -> dict:
     """The dispatch kernels at the DeepSeek-V2-Lite cell's shapes
     (MOE_DISPATCH_SHAPE, skewed routing): each against its plain version
     (moe_dispatch_checks), the launches of one graphed step at the cell's
-    defaults (moe_dispatch_step); with ``timing``, each kernel's time with
+    defaults (dsv2_step_launches); with ``timing``, each kernel's time with
     L2 emptied before each call, beside the bound of its bytes at this
     valid count and the PyTorch chain it replaced (the padded buffer, the
     f32 SwiGLU, the f32 index_add into a dropped row), timed alike."""
@@ -2715,8 +2744,8 @@ def moe_dispatch_phase(dev, card: str, gen, timing: bool = True) -> dict:
           f"{checks['swiglu_bwd_ulps']:.3f} ulp ({checks['swiglu_bwd_of_tol']:.3f} of its "
           f"tolerance), dgates {checks['dgates_of_mass']:.3e} of Σ|terms|; two calls bitwise; "
           "no row past the valid count written")
-    out["step"] = st = moe_dispatch_step(dev)
-    print(f"moe dispatch launches over the first call of the DeepSeek-V2-Lite step (2 warm-up "
+    out["step"] = st = dsv2_step_launches(dev)
+    print(f"dispatch and MLA launches over the first call of the DeepSeek-V2-Lite step (2 warm-up "
           f"steps + capture) [{card}]: a step {st['per_step']} = {st['per_step_total']}; a replay "
           f"{st['replay']}; graphed step {st['step_ms']:.2f} ms, peak {st['peak_bytes'] / 1e9:.2f} "
           f"GB, valid-row share {st['valid_row_share']:.4f}")
@@ -2781,6 +2810,254 @@ def moe_dispatch_phase(dev, card: str, gen, timing: bool = True) -> dict:
               f"replaced {tm['chain_cold'] * 1e3:.2f} us")
     del xs_chain, act_chain, y_chain, flush
     gc_cuda([dev])
+    return out
+
+
+#: MLA at the DeepSeek-V2-Lite cell's shapes: 8 sequences of 4,095
+#: positions (the step's input) against the cell's cos table of 4,096, the
+#: published widths
+MLA_SHAPE = dict(B=8, T=4095, table=4096, H=16, nope=128, rope=64, v=128, r=512)
+#: and at the CPU tests' widths (rope 8: one rope unit a head) and with no
+#: nope part, a head row all rope
+MLA_EDGE_SHAPES = (dict(B=2, T=33, table=40, H=4, nope=16, rope=8, v=16, r=32),
+                   dict(B=3, T=7, table=7, H=3, nope=0, rope=16, v=8, r=0))
+#: MLA's kernel launches a layer a train step: the forward, again in the
+#: recompute, and the backward
+MLA_LAUNCHES_A_LAYER = {"mla_rope_fwd": 2, "mla_rope_bwd": 1}
+#: the device kernels the chain of PyTorch ops that the MLA kernels replaced
+#: ran, by kind (patterns of the kernel names in the cell's trace): its cats,
+#: its copies (the casts and the regrouping), its f32 products, bf16 adds
+#: (autograd's merges) and fills (the zero-filled slices)
+GLUE_KINDS = {"cat": r"CatArrayBatchedCopy", "copy": r"copy_kernel",
+              "f32_mul": r"MulFunctor<float>", "bf16_add": r"CUDAFunctor_add<c10::BFloat16>",
+              "fill": r"FillFunctor"}
+
+
+def mla_inputs(dev, sh: dict, seed: int) -> dict:
+    """q_raw, kv, kv_a (N(0, 1), bf16) and the cell's cos/sin tables (YaRN
+    at the published settings, rope wide) for ``sh``'s first T positions."""
+    import dataclasses
+
+    import torch
+
+    from tpudash_torch.models import deepseek_v2 as D
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, T, H = sh["B"], sh["T"], sh["H"]
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
+
+    cfg = dataclasses.replace(D.DeepseekV2Config(), qk_rope_head_dim=sh["rope"])
+    cos, sin = D.rope_tables(cfg, sh["table"], dev)
+    return dict(q_raw=rand(B, T, H, sh["nope"] + sh["rope"]),
+                kv=rand(B, T, H, sh["nope"] + sh["v"]), kv_a=rand(B, T, sh["r"] + sh["rope"]),
+                cos=cos[:T], sin=sin[:T], g=g)
+
+
+def mla_bytes(sh: dict) -> dict:
+    """Each MLA kernel's bytes: every input read once, every output written
+    once (bf16 rows, the f32 tables once)."""
+    S, H, nope, rope, vd, r = (sh[k] for k in ("B", "H", "nope", "rope", "v", "r"))
+    S *= sh["T"]
+    qw, tables = nope + rope, 2 * 4 * sh["T"] * rope
+    return {"mla_rope_fwd": 2 * S * (H * qw + H * nope + rope) + 2 * 2 * S * H * qw + tables,
+            "mla_rope_bwd": 2 * S * H * (2 * qw + vd)
+                            + 2 * S * (H * qw + H * (nope + vd) + r + rope) + tables}
+
+
+def mla_checks(dev, sh: dict, seed: int, card: str) -> dict:
+    """The MLA kernels against the chain they replaced (mla_qk_rope_ref, and
+    autograd of it) at ``sh``: q and k the same bits; the autograd function
+    through SDPA on the card, its backward given dq, dk and dv in the
+    strides SDPA's backward returns them, then each also token-major and
+    head-major contiguous: dq_raw and dkv the same bits as autograd's,
+    dkv_a's latent columns zero and its rope columns within a bf16 ulp
+    (the heads' sum in another order), and all three the same bits as the
+    closed form (mla_rope_grads_ref); two calls the same bits."""
+    import torch
+
+    from tpudash_torch.models import deepseek_v2 as D
+    from tpudash_torch.ops import kernels as K
+
+    x = mla_inputs(dev, sh, seed)
+    q_raw, kv, kv_a, cos, sin = (x[k] for k in ("q_raw", "kv", "kv_a", "cos", "sin"))
+    label = f"B {sh['B']}, T {sh['T']} of {sh['table']}, H {sh['H']}, nope {sh['nope']}, " \
+            f"rope {sh['rope']}, v {sh['v']}, r {sh['r']}"
+    q, k = K.mla_rope_forward(q_raw, kv, kv_a, cos, sin)
+    q2, k2 = K.mla_rope_forward(q_raw, kv, kv_a, cos, sin)
+    q_p, k_p, _ = K.mla_qk_rope_ref(q_raw, kv, kv_a, cos, sin)
+    torch.cuda.synchronize()
+    check(torch.equal(q, q2) and torch.equal(k, k2), f"mla_rope_fwd {label}: two calls differ")
+    check(torch.equal(q, q_p) and torch.equal(k, k_p),
+          f"mla_rope_fwd {label}: differs from the chain")
+    # the function through SDPA, its backward's inputs kept as SDPA gave them
+    seen = {}
+    backward = K.mla_rope_backward
+
+    def keep(dq, dk, dv, *rest):
+        seen.update(dq=dq, dk=dk, dv=dv)
+        return backward(dq, dk, dv, *rest)
+
+    leaves = [t.clone().requires_grad_(True) for t in (q_raw, kv, kv_a)]
+    qf, kf, vf = K.mla_qk_rope(*leaves, cos, sin)
+    check(vf.data_ptr() == leaves[1].data_ptr() + 2 * sh["nope"], "v is not kv's view")
+    o = D._attention_core(qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2), 0.1)
+    K.mla_rope_backward = keep
+    try:
+        o.backward(torch.randn(o.shape, generator=x["g"], device=dev).bfloat16())
+    finally:
+        K.mla_rope_backward = backward
+    dq, dk, dv = seen["dq"], seen["dk"], seen["dv"]
+    chain_leaves = [t.clone().requires_grad_(True) for t in (q_raw, kv, kv_a)]
+    want = torch.autograd.grad(K.mla_qk_rope_ref(*chain_leaves, cos, sin), chain_leaves,
+                               (dq, dk, dv))
+    closed = K.mla_rope_grads_ref(dq, dk, dv, cos, sin, sh["r"])
+    out = {"sdpa_strides": {n: t.stride() for n, t in seen.items()}, "ulps": 0.0}
+    layouts = {"SDPA's": (dq, dk, dv),
+               "token-major": tuple(t.contiguous() for t in (dq, dk, dv)),
+               "head-major": tuple(t.transpose(1, 2).contiguous().transpose(1, 2)
+                                   for t in (dq, dk, dv))}
+    got = {name: K.mla_rope_backward(*g, cos, sin, sh["r"]) for name, g in layouts.items()}
+    again = K.mla_rope_backward(dq, dk, dv, cos, sin, sh["r"])
+    torch.cuda.synchronize()
+    through = tuple(t.grad for t in leaves)
+    for name, (dq_raw, dkv, dkv_a) in {**got, "the function's": through}.items():
+        check(torch.equal(dq_raw, want[0]) and torch.equal(dkv, want[1]),
+              f"mla_rope_bwd {label}, {name} strides: dq_raw or dkv differs from autograd's")
+        check(bool((dkv_a[..., :sh["r"]] == 0).all()) and torch.equal(dkv_a[..., :sh["r"]],
+                                                                     want[2][..., :sh["r"]]),
+              f"mla_rope_bwd {label}, {name}: dkv_a's latent columns are not zero")
+        a, b = dkv_a[..., sh["r"]:].float(), want[2][..., sh["r"]:].float()
+        ulps = ((a - b).abs() / _ulp_bf16(b)).max().item()
+        out["ulps"] = max(out["ulps"], ulps)
+        check(ulps <= 1.0, f"mla_rope_bwd {label}, {name}: the rope key's gradient {ulps} ulps off")
+        check(all(torch.equal(u, v) for u, v in zip((dq_raw, dkv, dkv_a), closed)),
+              f"mla_rope_bwd {label}, {name}: differs from the closed form")
+    check(all(torch.equal(u, v) for u, v in zip(again, got["SDPA's"])),
+          f"mla_rope_bwd {label}: two calls differ")
+    key = want[2][..., sh["r"]:]
+    out["key_bitwise_share"] = (got["SDPA's"][2][..., sh["r"]:] == key).float().mean().item()
+    print(f"mla kernels vs the chain at {label} [{card}]: q, k bitwise; the function through SDPA "
+          f"(dq, dk, dv strides {out['sdpa_strides']}), token-major and head-major: dq_raw, dkv "
+          f"bitwise autograd's, dkv_a latent zero, its rope key {out['ulps']:.3f} ulp "
+          f"({100 * out['key_bitwise_share']:.2f} % bitwise), all bitwise the closed form; two "
+          "calls bitwise")
+    out["tensors"] = dict(x, dq=dq, dk=dk, dv=dv)
+    return out
+
+
+def dsv2_eager_profile(dev, card: str) -> dict:
+    """One eager train step of DeepSeek-V2-Lite at the cell's defaults,
+    after one to warm up, under torch.profiler: device ms by kernel, the
+    sums of GLUE_KINDS over the step and over the ops under ``dsv2.mla``
+    spans (forward and recompute; a backward op has no span), the step's
+    device ms and kernels.  Runs either tree's package (tools/dsv2_profile.py
+    --tree)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpudash_torch.models import deepseek_v2 as D
+    from tpudash_torch.ops import kernels as K
+
+    K.build_kernels(tuple(k for k in K.KERNELS if k.name.startswith(("rmsnorm", "moe", "mla"))))
+    cfg = D.DeepseekV2Config()
+    gen_t = torch.Generator(device=dev).manual_seed(SEED + 20)
+    params, opt = D.make_train_state(cfg, gen_t)
+    consts, counters = D.Constants(cfg, dev), D.routing_counters(cfg, dev)
+    tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=gen_t, device=dev)
+    D.train_step(params, opt, tokens, cfg, consts, counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        D.train_step(params, opt, tokens, cfg, consts, counters)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_name, under = {}, {kind: 0.0 for kind in GLUE_KINDS}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        in_mla, p = False, e
+        while p is not None and not in_mla:
+            in_mla, p = p.name == "dsv2.mla", p.cpu_parent
+        for kern in e.kernels:
+            ms = kern.duration / 1e3
+            by_name[kern.name] = by_name.get(kern.name, 0.0) + ms
+            if in_mla:
+                for kind, pat in GLUE_KINDS.items():
+                    if re.search(pat, kern.name):
+                        under[kind] += ms
+    kinds = {kind: sum(ms for n, ms in by_name.items() if re.search(pat, n))
+             for kind, pat in GLUE_KINDS.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    out = {"card": card, "device_ms": sum(by_name.values()), "wall_s": wall,
+           "kinds_ms": kinds, "under_mla_ms": under, "top": top[:30],
+           "mla_kernels": {n: ms for n, ms in by_name.items() if "mla_rope" in n}}
+    del params, opt, consts, counters
+    gc_cuda([dev])
+    return out
+
+
+def mla_rope_phase(dev, card: str, gen, step: "dict | None" = None, timing: bool = True) -> dict:
+    """3f: the MLA kernels against the chain they replaced (mla_checks) at
+    the cell's shapes and at MLA_EDGE_SHAPES; the launches of one graphed
+    step (``step``, dsv2_step_launches' result, run here when None); with
+    ``timing``, each kernel's time with L2 emptied beside the bound of its
+    bytes and the chain's time, and one eager profiled step
+    (dsv2_eager_profile)."""
+    import torch
+
+    from tpudash_torch.ops import kernels as K
+
+    out = {"checks": mla_checks(dev, MLA_SHAPE, SEED + 20, card)}
+    tensors = out["checks"].pop("tensors")
+    for i, sh in enumerate(MLA_EDGE_SHAPES):
+        mla_checks(dev, sh, SEED + 21 + i, card).pop("tensors")
+    st = out["step"] = step if step is not None else dsv2_step_launches(dev)
+    mla = {k.name: st["per_step"][k.name] for k in K.MLA_KERNELS}
+    print(f"MLA launches a graphed DeepSeek-V2-Lite step [{card}]: {mla}; with the dispatch's, "
+          f"{st['per_step_total']:.0f} a step; none from a replay")
+    if not timing:
+        return out
+    t = tensors
+    q_raw, kv, kv_a, cos, sin = (t[k] for k in ("q_raw", "kv", "kv_a", "cos", "sin"))
+    dq, dk, dv, r = t["dq"], t["dk"], t["dv"], MLA_SHAPE["r"]
+    leaves = [u.clone().requires_grad_(True) for u in (q_raw, kv, kv_a)]
+    chain_out = K.mla_qk_rope_ref(*leaves, cos, sin)
+    fns = {"mla_rope_fwd": (lambda: K.mla_rope_forward(q_raw, kv, kv_a, cos, sin),
+                            lambda: K.mla_qk_rope_ref(q_raw, kv, kv_a, cos, sin)),
+           "mla_rope_bwd": (lambda: K.mla_rope_backward(dq, dk, dv, cos, sin, r),
+                            lambda: torch.autograd.grad(chain_out, leaves, (dq, dk, dv),
+                                                        retain_graph=True))}
+    hbm = gen.hbm_gbps * 1e9
+    nbytes = mla_bytes(MLA_SHAPE)
+    flush = torch.ones(64 * 2**20, device=dev)
+    flush_ms = graph_ms(lambda: flush.sum(), dev)
+    flush_events = cuda_ms({"flush": lambda: flush.sum()}, n=4, reps=5)["flush"]
+    out["timing"] = {}
+    for name, (kernel, chain) in fns.items():
+        tm = {"kernel_graph": graph_ms(kernel, dev, n=10, reps=7),
+              "kernel_cold": graph_ms(lambda kernel=kernel: (flush.sum(), kernel()), dev, n=10,
+                                      reps=7) - flush_ms,
+              "chain_cold": cuda_ms({"c": lambda chain=chain: (flush.sum(), chain())}, n=4,
+                                    reps=5)["c"] - flush_events,
+              "bound_ms": nbytes[name] / hbm * 1e3, "bytes": nbytes[name]}
+        out["timing"][name] = tm
+        print(f"{name} at the cell's shapes [{card}]: {tm['kernel_cold'] * 1e3:.2f} us with L2 "
+              f"emptied before each call ({tm['kernel_graph'] * 1e3:.2f} us warm), bound "
+              f"{tm['bound_ms'] * 1e3:.2f} us ({nbytes[name] / 1e6:.1f} MB: "
+              f"{100 * tm['bound_ms'] / tm['kernel_cold']:.2f} % of it); the PyTorch chain it "
+              f"replaced {tm['chain_cold'] * 1e3:.2f} us")
+    del chain_out, leaves, flush, tensors
+    gc_cuda([dev])
+    prof = out["profile"] = dsv2_eager_profile(dev, card)
+    def ms(d: dict) -> str:
+        return json.dumps({k: round(v, 2) for k, v in d.items()})
+
+    print(f"one eager DeepSeek-V2-Lite step under the profiler [{card}]: device "
+          f"{prof['device_ms']:.1f} ms; by kind over the step {ms(prof['kinds_ms'])}, under "
+          f"dsv2.mla {ms(prof['under_mla_ms'])}; the MLA kernels {ms(prof['mla_kernels'])} ms")
     return out
 
 
@@ -2937,11 +3214,16 @@ def main() -> int:
           f"tol {tol_mm:.3f}")
     del xm, wm, chain
 
+    start_device_tracing()  # before the first capture (3f profiles a step)
+
     # -- 3d. the norm kernels, and their launches in one capture of the tp 4 step --
     norm = norm_phase([dev] * 4, card, gen, "one card; the tp 4 step over the card named four times")
 
     # -- 3e. the MoE dispatch kernels at the DeepSeek-V2-Lite cell's shapes ---------
     moe_dispatch = moe_dispatch_phase(dev, card, gen)
+
+    # -- 3f. MLA's RoPE and q/k assembly kernels at the cell's shapes ----------------
+    mla = mla_rope_phase(dev, card, gen, step=moe_dispatch["step"])
 
     # -- 3a-3c. the exporter as deployed: prebuilt kernels with no compiler, the
     # image's build stage with no GPU, the DaemonSet's command --------------------
@@ -3019,7 +3301,8 @@ def main() -> int:
         check(0 < r.value <= MAX_SHARE_OF_PEAK * gen.hbm_gbps,
               f"{label} bandwidth {r.value} GB/s vs peak {gen.hbm_gbps}")
     check(bench_counts == {"hbm_read": (10 + 410) * 6, "hbm_copy": (5 + 205) * 6,
-                           **{k.name: 0 for k in (*kernels.NORM_KERNELS, *kernels.MOE_KERNELS)}},
+                           **{k.name: 0 for k in (*kernels.NORM_KERNELS, *kernels.MOE_KERNELS,
+                                                  *kernels.MLA_KERNELS)}},
           f"bench launches {bench_counts}")
     print(f"probe bench path [{card}]: matmul 4096/64 {mm.value:.2f} TFLOP/s "
           f"({100 * mm.value / gen.peak_bf16_tflops:.2f} % of peak); read 256 MiB k1=10 k2=410 "
@@ -3232,8 +3515,20 @@ def main() -> int:
     def us(v):
         return "not measured" if v is None else f"{v * 1e3:.2f} us"
 
+    for name, t in mla["timing"].items():
+        entries.append({
+            "name": name, "route": "cuda", "source": "tpudash_torch/ops/csrc/mla_rope.cu",
+            "replaces": "none (models/deepseek_v2.py::_mla's RoPE, cats and split, and their "
+                        "autograd; the JAX package has no MLA or RoPE)",
+            "launches": mla["step"]["first_call"][name], "max_abs_err": None,
+            "worst": {"key_ulps": mla["checks"]["ulps"]}, "ms": t["kernel_cold"],
+            "graph_ms": t["kernel_graph"], "chain_ms": t["chain_cold"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "path": "DeepSeek-V2-Lite train step",
+            "per_step": mla["step"]["per_step"][name],
+            "launches_by_path": {path: c[name] for path, c in paths.items()}})
+
     for e in entries:
-        if "chain_ms" in e:  # printed by moe_dispatch_phase
+        if "chain_ms" in e:  # printed by moe_dispatch_phase and mla_rope_phase
             continue
         if "device_ms" not in e:
             print(f"{e['name']} at {e['shape']} bf16 [{card}]: {e['ms'] * 1e3:.2f} us with L2 "

@@ -15,7 +15,13 @@ recomputed in backward, as ``workload.forward`` does.
   (n/2, 2) → (2, n/2) before ``rotate_half``) at YaRN's frequencies;
   causal attention at ``(nope + rope)**-0.5 · mscale²`` runs fused (on
   GPUs cuDNN's or the memory-efficient kernel, never one that keeps the
-  T×T scores), then ``o·W_o``.
+  T×T scores), then ``o·W_o``.  Between the projections and attention,
+  ``kernels.mla_qk_rope`` builds q = [nope | RoPE(rope)], k = [k_nope |
+  the shared key's RoPE on every head] and v (``kv``'s view): on GPUs one
+  hand-written kernel each way (``ops/csrc/mla_rope.cu``), which reads
+  the projections and writes q and k once, and backward writes the
+  gradients of q's and kv's projections and of the shared key once; on
+  the CPU the chain of :func:`_rope`, cats and a split under autograd.
 - **FFN**: the first ``first_k_dense`` layers a SwiGLU; the others
   ``shared(x) + Σ_{j ≤ top_k, e_j held here} g_j · expert_{e_j}(x)`` with
   ``g = softmax(x·W_router)`` over every routed expert in f32 and the top
@@ -277,12 +283,9 @@ def _mla(x, lp: dict, cos, sin, cfg: DeepseekV2Config) -> torch.Tensor:
         kv_a = torch.matmul(x, lp["wkv_a"])
         c = workload._rmsnorm(kv_a[..., :r].contiguous(), lp["kv_norm"])
         kv = torch.matmul(c, lp["wkv_b"]).view(B, T, H, nope + cfg.v_head_dim)
-        k_nope, v = kv.split([nope, cfg.v_head_dim], dim=-1)
-        q_pe = _rope(q[..., nope:], cos[:, None], sin[:, None])
-        k_pe = _rope(kv_a[..., r:], cos, sin)
-        q = torch.cat([q[..., :nope], q_pe], dim=-1).transpose(1, 2)
-        k = torch.cat([k_nope, k_pe[:, :, None].expand(B, T, H, rope)], dim=-1).transpose(1, 2)
-        o = _attention_core(q, k, v.transpose(1, 2), cfg.softmax_scale)
+        q, k, v = kernels.mla_qk_rope(q, kv, kv_a, cos, sin)
+        o = _attention_core(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            cfg.softmax_scale)
         return torch.matmul(o.transpose(1, 2).reshape(B, T, H * cfg.v_head_dim), lp["wo"])
 
 
@@ -470,10 +473,10 @@ def train_step(params: dict, optimizer: torch.optim.Optimizer, tokens: torch.Ten
 def make_train_step(cfg: DeepseekV2Config, device, counters: torch.Tensor):
     """``step(params, optimizer, tokens)``, ``graphed.compiled``: on a GPU
     one CUDA graph, captured at its first call; on the CPU eager.  On a GPU
-    the norm's and the dispatch's kernels are built (or loaded) first, the
-    two nvcc runs side by side."""
+    the norm's, the dispatch's and MLA's kernels are built (or loaded)
+    first, the three nvcc runs side by side."""
     if torch.device(device).type == "cuda":
-        kernels.build_kernels((*kernels.NORM_KERNELS, *kernels.MOE_KERNELS))
+        kernels.build_kernels((*kernels.NORM_KERNELS, *kernels.MOE_KERNELS, *kernels.MLA_KERNELS))
     consts = Constants(cfg, device)
     return compiled(lambda p, o, t: train_step(p, o, t, cfg, consts, counters))
 

@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the probes and the model step: loader,
 wrappers, plain versions.
 
-Ten kernels, from four CUDA C++ sources under ``csrc/``:
+Twelve kernels, from five CUDA C++ sources under ``csrc/``:
 
 - ``hbm_read`` (``csrc/hbm_read.cu``) replaces the Pallas
   ``_hbm_read_kernel``: ``out(1, cols) = prev + Σ_rows x``.
@@ -19,6 +19,11 @@ Ten kernels, from four CUDA C++ sources under ``csrc/``:
   :func:`moe_swiglu` and :func:`moe_combine` are the autograd functions
   over them.  They replace no Pallas kernel either: the reference's MoE is
   a dense one-hot product.
+- ``mla_rope_fwd`` and ``mla_rope_bwd`` (``csrc/mla_rope.cu``): MLA's RoPE
+  and q/k assembly in ``models/deepseek_v2.py``, from the projections to
+  attention's q, k and v and back, each byte once; :func:`mla_qk_rope` is
+  the autograd function over them.  They replace no Pallas kernel: the JAX
+  package has no MLA and no RoPE.
 
 Build: the first time a kernel is asked for on a CUDA tensor, ``nvcc``
 compiles its source for ``sm_90a`` into a shared library with a plain C
@@ -35,7 +40,9 @@ the plain version; the norm's raise on it, and their caller
 (``models/workload.py::_rmsnorm``) sends CPU tensors to :func:`rmsnorm_ref`.
 The MoE dispatch's autograd functions run their plain versions on CPU
 tensors and the kernels on CUDA tensors, whose wrappers raise on anything
-else.  There is no fallback from the card to the plain version.
+else; :func:`mla_qk_rope` alike, where on CPU tensors the plain version is
+the model's own chain under autograd.  There is no fallback from the card
+to the plain version.
 """
 
 from __future__ import annotations
@@ -198,10 +205,24 @@ MOE_COMBINE_BWD = CudaKernel(
     # dy, ys, gates, pos, n_valid, dys, dgates
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5,
 )
+#: MLA's RoPE and q/k assembly (csrc/mla_rope.cu); both end in S, T, H, nope,
+#: rope, v, r and the grid
+MLA_ROPE_FWD = CudaKernel(
+    "mla_rope_fwd", "mla_rope.cu", "tpudash_mla_rope_forward",
+    # q_raw, kv, kv_a, cos, sin, q, k
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8,
+)
+MLA_ROPE_BWD = CudaKernel(
+    "mla_rope_bwd", "mla_rope.cu", "tpudash_mla_rope_backward",
+    # dq, dk, dv, cos, sin, dq_raw, dkv, dkv_a, then the (b, t, h) strides of dq, dk, dv
+    [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 8,
+)
 NORM_KERNELS: tuple[CudaKernel, ...] = (RMSNORM_FWD, RMSNORM_BWD)
 MOE_KERNELS: tuple[CudaKernel, ...] = (MOE_GATHER_FWD, MOE_GATHER_BWD, MOE_SWIGLU_FWD,
                                        MOE_SWIGLU_BWD, MOE_COMBINE_FWD, MOE_COMBINE_BWD)
-KERNELS: tuple[CudaKernel, ...] = (HBM_READ, HBM_COPY, *NORM_KERNELS, *MOE_KERNELS)
+MLA_KERNELS: tuple[CudaKernel, ...] = (MLA_ROPE_FWD, MLA_ROPE_BWD)
+KERNELS: tuple[CudaKernel, ...] = (HBM_READ, HBM_COPY, *NORM_KERNELS, *MOE_KERNELS,
+                                   *MLA_KERNELS)
 
 
 def build_kernels(kernels: "list[CudaKernel] | tuple[CudaKernel, ...]" = KERNELS) -> float:
@@ -828,3 +849,213 @@ def moe_combine(ys: torch.Tensor, gates: torch.Tensor, pos: torch.Tensor,
     added: (S, d) bf16, differentiable in ys and gates; plain versions on
     the CPU, kernels on GPUs."""
     return _MoECombine.apply(ys, gates, pos, n_valid)
+
+
+# --- MLA's RoPE and q/k assembly ------------------------------------------------
+#
+# DeepSeek-V2-Lite's MLA (models/deepseek_v2.py::_mla) projects, per token,
+# q_raw (B, T, H, nope + rope), kv (B, T, H, nope + v) and kv_a (B, T, r +
+# rope): the latent's r columns, then one rope-wide key shared by the heads.
+# The glue before attention: q = [q_raw's nope | RoPE(q_raw's rope)], k =
+# [kv's nope | RoPE(kv_a's rope columns) on every head], v = kv's v half;
+# cos, sin (T, rope) f32.  Extents come from the shapes: rope from cos, nope
+# from q_raw, v from kv, r from kv_a.
+
+#: csrc/mla_rope.cu's persistent grid: blocks on each SM
+MLA_CTAS_PER_SM = 8
+#: the backward's shared memory: two tokens' heads at the shared key's columns
+MLA_MAX_KEY_BYTES = 48 * 1024
+
+
+def _mla_widths(q_raw: torch.Tensor, kv: torch.Tensor, kv_a: torch.Tensor,
+                cos: torch.Tensor) -> tuple:
+    """(nope, rope, v, r)."""
+    rope = cos.shape[-1]
+    nope = q_raw.shape[-1] - rope
+    return nope, rope, kv.shape[-1] - nope, kv_a.shape[-1] - rope
+
+
+def mla_qk_rope_ref(q_raw: torch.Tensor, kv: torch.Tensor, kv_a: torch.Tensor,
+                    cos: torch.Tensor, sin: torch.Tensor) -> tuple:
+    """Plain version of the forward, and on CPU tensors the model's own
+    path: ``(q, k, v)`` by the model's RoPE (``deepseek_v2._rope``, looked
+    up at the call, so that a patch of it reaches this path), two cats and
+    ``kv.split``, differentiable by autograd."""
+    from tpudash_torch.models import deepseek_v2  # the model's RoPE; it imports this module
+
+    B, T, H = q_raw.shape[:3]
+    nope, rope, vd, r = _mla_widths(q_raw, kv, kv_a, cos)
+    k_nope, v = kv.split([nope, vd], dim=-1)
+    q_pe = deepseek_v2._rope(q_raw[..., nope:], cos[:, None], sin[:, None])
+    k_pe = deepseek_v2._rope(kv_a[..., r:], cos, sin)
+    q = torch.cat([q_raw[..., :nope], q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None].expand(B, T, H, rope)], dim=-1)
+    return q, k, v
+
+
+def _rope_t(g: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """RoPE's transpose, in the kernel's closed form: ``g`` (..., rope) at
+    the regrouped positions, f32 products and sums rounded as autograd of
+    ``deepseek_v2._rope`` rounds them, un-regrouped, rounded once to bf16."""
+    m = g.shape[-1] // 2
+    g = g.float()
+    lo, hi = g[..., :m], g[..., m:]
+    even = lo * cos[..., :m] + hi * sin[..., m:]
+    odd = hi * cos[..., m:] - lo * sin[..., :m]
+    return torch.stack([even, odd], dim=-1).flatten(-2).to(torch.bfloat16)
+
+
+def mla_rope_grads_ref(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
+                       cos: torch.Tensor, sin: torch.Tensor, r: int) -> tuple:
+    """Plain version of the backward, in the kernel's closed form: ``(dq_raw,
+    dkv, dkv_a)`` for the gradients of :func:`mla_qk_rope_ref`'s q, k, v.
+    The shared key's gradient adds the heads in f32 in head order and
+    rounds to bf16 (where autograd's expand backward rounds), then takes
+    RoPE's transpose; dkv_a's latent columns are zero."""
+    B, T, H = dq.shape[:3]
+    rope = cos.shape[-1]
+    nope = dq.shape[-1] - rope
+    key = dk[..., 0, nope:].float()
+    for h in range(1, H):
+        key = key + dk[..., h, nope:].float()
+    dq_raw = torch.cat([dq[..., :nope], _rope_t(dq[..., nope:], cos[:, None], sin[:, None])], -1)
+    dkv = torch.cat([dk[..., :nope], dv], dim=-1)
+    dkv_a = torch.cat([dq.new_zeros((B, T, r)), _rope_t(key.to(torch.bfloat16), cos, sin)], -1)
+    return dq_raw, dkv, dkv_a
+
+
+def _check_mla_tables(cos: torch.Tensor, sin: torch.Tensor, T: int) -> None:
+    rope = cos.shape[-1] if cos.dim() else 0
+    if rope < 8 or rope % 8:
+        raise ValueError(f"the MLA kernels take an even rope width that is a multiple of 8, got "
+                         f"cos {tuple(cos.shape)}")
+    for what, t in (("cos", cos), ("sin", sin)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (T, rope) or not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous f32 ({T}, {rope}), got "
+                             f"{tuple(t.shape)} {t.dtype}")
+
+
+def _check_mla_rows(rows: dict, lead: tuple, widths: dict) -> None:
+    """bf16 ``rows`` of shape lead + (width,), and ``widths`` multiples of 8
+    (at least 8 but nope's and r's)."""
+    for what, t in rows.items():
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the MLA kernels take bf16 {what}, got {t.dtype}")
+        if t.dim() != len(lead) + 1 or tuple(t.shape[:-1]) != lead:
+            raise ValueError(f"{what} must be {lead} + (width,), got {tuple(t.shape)}")
+    for what, w in widths.items():
+        if w < (0 if what in ("nope", "r") else 8) or w % 8:
+            raise ValueError(f"the MLA kernels take widths that are multiples of 8, got {what} {w}")
+
+
+def _check_mla_device(tensors: dict) -> torch.device:
+    """One CUDA device for all of ``tensors``, each 16-byte aligned."""
+    dev = tensors[next(iter(tensors))].device
+    if dev.type != "cuda":
+        raise ValueError(f"the MLA kernels run on CUDA devices, not {dev}; mla_qk_rope_ref and "
+                         "mla_rope_grads_ref are their plain versions")
+    if any(t.device != dev for t in tensors.values()):
+        raise ValueError(f"tensors on {[str(t.device) for t in tensors.values()]}: one device")
+    for what, t in tensors.items():
+        _check_card_tensor(t, what)
+    return dev
+
+
+def _mla_grid(S: int, device: torch.device) -> int:
+    return max(1, min(S, _sm_count(device.index) * MLA_CTAS_PER_SM))
+
+
+def mla_rope_forward(q_raw: torch.Tensor, kv: torch.Tensor, kv_a: torch.Tensor,
+                     cos: torch.Tensor, sin: torch.Tensor) -> tuple:
+    """The forward kernel: :func:`mla_qk_rope_ref`'s q and k, new
+    contiguous (B, T, H, nope + rope) bf16 tensors (v is kv's view)."""
+    if q_raw.dim() != 4:
+        raise ValueError(f"q_raw must be (B, T, H, nope + rope), got {tuple(q_raw.shape)}")
+    B, T, H = q_raw.shape[:3]
+    nope, rope, vd, r = _mla_widths(q_raw, kv, kv_a, cos)
+    _check_mla_tables(cos, sin, T)
+    _check_mla_rows({"q_raw": q_raw, "kv": kv}, (B, T, H), {"nope": nope, "v": vd})
+    _check_mla_rows({"kv_a": kv_a}, (B, T), {"r": r})
+    tensors = {"q_raw": q_raw, "kv": kv, "kv_a": kv_a, "cos": cos, "sin": sin}
+    if not all(t.is_contiguous() for t in tensors.values()):
+        raise ValueError("the MLA forward takes contiguous q_raw, kv, kv_a, cos and sin")
+    dev = _check_mla_device(tensors)
+    q, k = torch.empty_like(q_raw), torch.empty_like(q_raw)
+    S = B * T
+    MLA_ROPE_FWD.launch(dev, q_raw.data_ptr(), kv.data_ptr(), kv_a.data_ptr(), cos.data_ptr(),
+                        sin.data_ptr(), q.data_ptr(), k.data_ptr(), S, T, H, nope, rope, vd, r,
+                        _mla_grid(S, dev))
+    return q, k
+
+
+def _row_strides(t: torch.Tensor, what: str) -> tuple:
+    """(b, t, h) element strides of a (B, T, H, width) tensor whose rows
+    are contiguous and start on 16 bytes."""
+    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]):
+        raise ValueError(f"the MLA backward takes {what} with contiguous rows and (b, t, h) "
+                         f"strides that are multiples of 8, got strides {t.stride()}")
+    return t.stride()[:3]
+
+
+def mla_rope_backward(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor, cos: torch.Tensor,
+                      sin: torch.Tensor, r: int) -> tuple:
+    """The backward kernel: :func:`mla_rope_grads_ref`'s ``(dq_raw, dkv,
+    dkv_a)``, new contiguous bf16 tensors, from dq, dk and dv in whatever
+    (b, t, h) strides they come, each row contiguous."""
+    if dq.dim() != 4:
+        raise ValueError(f"dq must be (B, T, H, nope + rope), got {tuple(dq.shape)}")
+    B, T, H = dq.shape[:3]
+    rope = cos.shape[-1] if cos.dim() else 0
+    nope, vd = dq.shape[-1] - rope, dv.shape[-1]
+    _check_mla_tables(cos, sin, T)
+    _check_mla_rows({"dq": dq, "dk": dk, "dv": dv}, (B, T, H), {"nope": nope, "v": vd, "r": r})
+    if dk.shape != dq.shape:
+        raise ValueError(f"dk must have dq's shape {tuple(dq.shape)}, got {tuple(dk.shape)}")
+    if 4 * H * rope > MLA_MAX_KEY_BYTES:  # two tokens' H · rope bf16 values
+        raise ValueError(f"the MLA backward parks two tokens' {H} heads of the shared key in "
+                         f"{MLA_MAX_KEY_BYTES} bytes of shared memory: H · rope must be at most "
+                         f"{MLA_MAX_KEY_BYTES // 4}, got {H} · {rope}")
+    strides = [*_row_strides(dq, "dq"), *_row_strides(dk, "dk"), *_row_strides(dv, "dv")]
+    dev = _check_mla_device({"dq": dq, "dk": dk, "dv": dv, "cos": cos, "sin": sin})
+    dq_raw = torch.empty((B, T, H, nope + rope), dtype=dq.dtype, device=dev)
+    dkv = torch.empty((B, T, H, nope + vd), dtype=dq.dtype, device=dev)
+    dkv_a = torch.empty((B, T, r + rope), dtype=dq.dtype, device=dev)
+    S = B * T
+    MLA_ROPE_BWD.launch(dev, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), cos.data_ptr(),
+                        sin.data_ptr(), dq_raw.data_ptr(), dkv.data_ptr(), dkv_a.data_ptr(),
+                        *strides, S, T, H, nope, rope, vd, r, _mla_grid(S, dev))
+    return dq_raw, dkv, dkv_a
+
+
+class _MLAQKRope(torch.autograd.Function):
+    """The glue as one function, each direction a kernel on GPUs (the plain
+    forward and the closed-form backward on CPU tensors).  RoPE is linear:
+    it saves cos and sin only; v is kv's view, so that kv's gradient is
+    written once, [dk's nope | dv]."""
+
+    @staticmethod
+    def forward(ctx, q_raw, kv, kv_a, cos, sin):
+        ctx.save_for_backward(cos, sin)
+        ctx.latent = kv_a.shape[-1] - cos.shape[-1]
+        if _on_cpu(q_raw):
+            return mla_qk_rope_ref(q_raw, kv, kv_a, cos, sin)
+        q, k = mla_rope_forward(q_raw, kv, kv_a, cos, sin)
+        return q, k, kv[..., q_raw.shape[-1] - cos.shape[-1]:]
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv):
+        cos, sin = ctx.saved_tensors
+        grad = mla_rope_grads_ref if _on_cpu(dq) else mla_rope_backward
+        return (*grad(dq, dk, dv, cos, sin, ctx.latent), None, None)
+
+
+def mla_qk_rope(q_raw: torch.Tensor, kv: torch.Tensor, kv_a: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor) -> tuple:
+    """MLA's ``(q, k, v)`` (B, T, H, ·) from its projections, differentiable
+    in q_raw, kv and kv_a: on CUDA tensors the two kernels (raising on what
+    they do not take); on CPU tensors :func:`mla_qk_rope_ref` itself under
+    autograd, so that the CPU path is the model's chain, a patch of its
+    RoPE included."""
+    if _on_cpu(q_raw):
+        return mla_qk_rope_ref(q_raw, kv, kv_a, cos, sin)
+    return _MLAQKRope.apply(q_raw, kv, kv_a, cos, sin)
