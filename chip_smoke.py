@@ -1721,6 +1721,21 @@ mla_ok = (all(torch.equal(a, b) for a, b in zip(
               (qm, km), kernels.mla_qk_rope_ref(qr, kvm, kva, cs, sn)))
           and all(torch.equal(a, b) for a, b in zip(
               grads, kernels.mla_rope_grads_ref(qm, km, kvm[..., 16:], cs, sn, 32))))
+# KDA's four on one chunk of one head
+qd, kdk = (torch.nn.functional.normalize(torch.randn((1, 1, 1, 64, 128), generator=g, device=dev),
+                                         dim=-1) for _ in range(2))
+Gd = (-torch.rand((1, 1, 1, 64, 128), generator=g, device=dev)).cumsum(-2)
+pairs = kernels.kda_pairs_forward(qd, kdk, Gd)
+dpairs = kernels.kda_pairs_backward(qd, kdk, Gd, *pairs)
+gam = torch.rand((1, 1, 1, 128), generator=g, device=dev)
+st = kernels.kda_state_forward(qd, kdk, Gd.exp(), gam)
+dst = kernels.kda_state_backward(qd, Gd.exp(), gam, st[0], st[1])
+torch.cuda.synchronize()
+kda_ok = all(((a - b).abs().max() <= 1e-4 * b.abs().max()).item() for a, b in zip(
+    (*pairs, *dpairs, *st, *dst),
+    (*kernels.kda_pairs_ref(qd, kdk, Gd), *kernels.kda_pairs_grads_ref(qd, kdk, Gd, *pairs),
+     *kernels.kda_state_ref(qd, kdk, Gd.exp(), gam),
+     *kernels.kda_state_reverse_ref(qd, Gd.exp(), gam, st[0], st[1]))))
 moe_ok = (torch.equal(xs[:nv], kernels.moe_gather_ref(xm, pos, n_valid, cap)[:nv])
           and torch.equal(dxm, kernels.moe_gather_grad_ref(xs, pos, n_valid))
           and torch.equal(ym, kernels.moe_combine_ref(xs, gm, pos, n_valid))
@@ -1733,7 +1748,7 @@ print(json.dumps({
     "copy_exact": torch.equal(copied, kernels.copy_ref(x)),
     "norm_ok": bool(((y.float() - y_ref).abs() <= ulp).all() and torch.isfinite(dscale).all()
                     and torch.isfinite(dh.float()).all()),
-    "moe_ok": moe_ok, "mla_ok": mla_ok,
+    "moe_ok": moe_ok, "mla_ok": mla_ok, "kda_ok": kda_ok,
 }))
 """
 
@@ -1777,6 +1792,7 @@ def check_kernel_child(what: str, rc: int, out: list, err: str, tree: Path) -> d
     check(got["norm_ok"], f"{what}: the norm's forward off its plain version")
     check(got["moe_ok"], f"{what}: a dispatch kernel off its plain version")
     check(got["mla_ok"], f"{what}: an MLA kernel off its plain version")
+    check(got["kda_ok"], f"{what}: a KDA kernel off its plain version")
     check(got["read_ok"], f"{what}: hbm_read max err {got['read_err']:.3e} above its tolerance")
     check(got["copy_exact"], f"{what}: hbm_copy not exact")
     return got
@@ -3061,6 +3077,289 @@ def mla_rope_phase(dev, card: str, gen, step: "dict | None" = None, timing: bool
     return out
 
 
+#: Kimi-Linear's KDA at the cell's shapes (4 sequences of 8,191 positions, 32
+#: heads of 128) and at two small ones (one whole chunk; ragged chunks)
+KDA_SHAPE = dict(B=4, T=8191, H=32)
+KDA_EDGE_SHAPES = (dict(B=1, T=64, H=1), dict(B=2, T=100, H=3))
+#: the chunks of the cell's shape whose pair blocks are checked against the
+#: plain version on the card (the plain one forms a (C, C, D) tensor a chunk)
+KDA_PAIR_CHECK_CHUNKS = 8
+#: the KDA kernels' launches a KDA layer a train step: the forward, again in
+#: the recompute, and the backward
+KDA_LAUNCHES_A_LAYER = {"kda_pairs_fwd": 2, "kda_state_fwd": 2, "kda_pairs_bwd": 1,
+                        "kda_state_bwd": 1}
+#: the kernels against their plain versions on the card, max |a − b| over
+#: max |b|: the same f32 terms summed in other orders (128 channels, or 64
+#: positions, a sum), and the state pass's over 128 chunks in sequence
+KDA_KERNEL_RTOL = 2.0**-16
+#: the whole chunked rule on the card against the plain chain on the host,
+#: the same: more sums in other orders, and the triangular solve's own
+KDA_CHAIN_RTOL = 2.0**-14
+
+
+def kda_inputs(dev, sh: dict, seed: int, grad: bool = False) -> dict:
+    """q, k (L2-normed), v, g and beta f32 (B, T, H, ·) as the model makes
+    them at init: g = −exp(A_log)·softplus(f + dt_bias) with A_log = log U(1,
+    16), dt_bias the inverse softplus of exp U(ln 0.001, ln 0.1) and f ~
+    N(0, 0.5²); beta = sigmoid(N(0, 1))."""
+    import torch
+
+    from tpudash_torch.models import kimi_linear as KL
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, T, H, D = sh["B"], sh["T"], sh["H"], 128
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    a_log = KL.init_leaf("A_log", (H,), 0.02, g)
+    dt_bias = KL.init_leaf("dt_bias", (H * D,), 0.02, g).view(H, D)
+    x = dict(q=KL._l2norm(rand(B, T, H, D)), k=KL._l2norm(rand(B, T, H, D)), v=rand(B, T, H, D),
+             g=-a_log.exp()[:, None] * torch.nn.functional.softplus(0.5 * rand(B, T, H, D) + dt_bias),
+             beta=torch.sigmoid(rand(B, T, H)))
+    if grad:
+        x = {n: t.requires_grad_(True) for n, t in x.items()}
+    return x
+
+
+def kda_call_bytes(sh: dict, backward: bool) -> int:
+    """The least bytes of one KDA call at ``sh`` (gpubench/flops_kimi_linear.py's
+    count): q, k, v, the decay's and β's pre-activations in and o out in bf16,
+    each once; backward also o's gradient in and the inputs' gradients out."""
+    wide, narrow = sh["B"] * sh["T"] * sh["H"] * 128, sh["B"] * sh["T"] * sh["H"]
+    fwd = 2 * (5 * wide + narrow)
+    return fwd + 2 * (4 * wide + narrow) if backward else fwd
+
+
+def _kda_pieces(x: dict) -> dict:
+    """The kernels' inputs as kernels.kda_chunk makes them."""
+    import torch
+
+    from tpudash_torch.ops import kernels as K
+
+    C = K.KDA_CHUNK
+    B, T, H, Dk = x["k"].shape
+    N = -(-T // C)
+    q, k, v, g = (K._chunked(x[n].detach(), N, C) for n in ("q", "k", "v", "g"))
+    beta = K._chunked(x["beta"].detach(), N, C)[..., None]
+    G = g.cumsum(-2)
+    decay = G.exp()
+    last = G[..., -1, :]
+    w = torch.empty_like(q)
+    u = torch.empty_like(v)
+    for n in range(N):  # the solve a chunk at a time: its plain form, no batch of 10^4
+        a = K.kda_pairs_ref(q[:, :, n:n + 1], k[:, :, n:n + 1], G[:, :, n:n + 1])[0]
+        rhs = torch.cat([k[:, :, n:n + 1] * decay[:, :, n:n + 1] * beta[:, :, n:n + 1],
+                         v[:, :, n:n + 1] * beta[:, :, n:n + 1]], -1)
+        wu = torch.linalg.solve_triangular(a * beta[:, :, n:n + 1], rhs, upper=False,
+                                           unitriangular=True)
+        w[:, :, n:n + 1], u[:, :, n:n + 1] = wu.split([Dk, v.shape[-1]], -1)
+    kd = (k * (last[..., None, :] - G).exp()).contiguous()
+    return dict(q=q, k=k, G=G, w=w, u=u, kd=kd, gamma=last.exp().contiguous())
+
+
+def _rel(a, b) -> float:
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def kda_checks(dev, sh: dict, seed: int, card: str, pair_chunks: "int | None" = None) -> dict:
+    """Each KDA kernel against its plain version on the card at ``sh`` (the
+    pair blocks on the first ``pair_chunks`` chunks of each head), max |a −
+    b| over max |b| within KDA_KERNEL_RTOL; two calls the same bits."""
+    import torch
+
+    from tpudash_torch.ops import kernels as K
+
+    x = kda_inputs(dev, sh, seed)
+    pc = _kda_pieces(x)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    label = f"B {sh['B']}, T {sh['T']}, H {sh['H']}"
+    out = {}
+    sl = slice(None, pair_chunks)
+    q, k, G = (pc[n][:, :, sl].contiguous() for n in ("q", "k", "G"))
+    got = K.kda_pairs_forward(q, k, G)
+    again = K.kda_pairs_forward(q, k, G)
+    want = K.kda_pairs_ref(q, k, G)
+    out["pairs_fwd"] = max(_rel(a, b) for a, b in zip(got, want))
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"kda_pairs_fwd {label}: two calls differ")
+    check(all(torch.equal(a, a.tril(d)) for a, d in zip(got, (-1, 0))),
+          f"kda_pairs_fwd {label}: a value above its diagonal")
+    da = torch.randn(got[0].shape, generator=g, device=dev)
+    db = torch.randn(got[0].shape, generator=g, device=dev)
+    gotb = K.kda_pairs_backward(q, k, G, da, db)
+    wantb = K.kda_pairs_grads_ref(q, k, G, da, db)
+    out["pairs_bwd"] = max(_rel(a, b) for a, b in zip(gotb, wantb))
+    check(all(torch.equal(a, b) for a, b in zip(gotb, K.kda_pairs_backward(q, k, G, da, db))),
+          f"kda_pairs_bwd {label}: two calls differ")
+    del got, again, want, gotb, wantb, q, k, G, da, db
+    w, u, kd, gamma = (pc[n] for n in ("w", "u", "kd", "gamma"))
+    got = K.kda_state_forward(w, u, kd, gamma)
+    want = K.kda_state_ref(w, u, kd, gamma)
+    out["state_fwd"] = max(_rel(a, b) for a, b in zip(got, want))
+    check(all(torch.equal(a, b) for a, b in zip(got, K.kda_state_forward(w, u, kd, gamma))),
+          f"kda_state_fwd {label}: two calls differ")
+    gS = torch.randn(got[0].shape, generator=g, device=dev)
+    gv = torch.randn(got[1].shape, generator=g, device=dev)
+    gotb = K.kda_state_backward(w, kd, gamma, gS, gv)
+    wantb = K.kda_state_reverse_ref(w, kd, gamma, gS, gv)
+    out["state_bwd"] = max(_rel(a, b) for a, b in zip(gotb, wantb))
+    torch.cuda.synchronize()
+    for name in ("pairs_fwd", "pairs_bwd", "state_fwd", "state_bwd"):
+        check(out[name] <= KDA_KERNEL_RTOL,
+              f"kda_{name} {label}: {out[name]:.3e} of the plain version's largest value")
+    print(f"kda kernels vs their plain versions at {label} [{card}] (pairs over "
+          f"{pair_chunks or 'every'} chunk(s) a head): max |diff| / max |plain| "
+          + ", ".join(f"{n} {v:.3e}" for n, v in out.items()) + "; two calls bitwise")
+    return out
+
+
+def kda_chain_check(dev, sh: dict, seed: int, card: str) -> dict:
+    """kernels.kda_chunk on the card (the kernels) against the same chain on
+    the host in f32 (the plain versions): the output, the final state and
+    every input's gradient, max |a − b| over max |b| within KDA_CHAIN_RTOL."""
+    import torch
+
+    from tpudash_torch.ops import kernels as K
+
+    x = kda_inputs(dev, sh, seed, grad=True)
+    host = {n: t.detach().cpu().requires_grad_(True) for n, t in x.items()}
+    names = ("q", "k", "v", "g", "beta")
+    outs = K.kda_chunk(*(x[n] for n in names), 128**-0.5)
+    outs_h = K.kda_chunk(*(host[n] for n in names), 128**-0.5)
+    g = torch.Generator().manual_seed(seed + 2)
+    cot = [torch.randn(o.shape, generator=g) for o in outs_h]
+    grads = torch.autograd.grad(outs, [x[n] for n in names], [c.to(dev) for c in cot])
+    grads_h = torch.autograd.grad(outs_h, [host[n] for n in names], cot)
+    rel = {"o": _rel(outs[0].cpu(), outs_h[0]), "state": _rel(outs[1].cpu(), outs_h[1]),
+           **{f"d{n}": _rel(a.cpu(), b) for n, a, b in zip(names, grads, grads_h)}}
+    label = f"B {sh['B']}, T {sh['T']}, H {sh['H']}"
+    for n, v in rel.items():
+        check(v <= KDA_CHAIN_RTOL, f"kda_chunk {label}: {n} {v:.3e} off the host's chain")
+    print(f"kda_chunk on the card vs the plain chain on the host at {label} [{card}]: max |diff| / "
+          "max |host| " + ", ".join(f"{n} {v:.3e}" for n, v in rel.items()))
+    return rel
+
+
+def kimi_step_launches(dev, steps: int = 2) -> dict:
+    """launch_counts() over the first call of the Kimi-Linear step at the
+    cell's defaults (its eager warm-up steps and its capture) and over
+    replays: KDA's kernels KDA_LAUNCHES_A_LAYER times a KDA layer a step,
+    MLA's MLA_LAUNCHES_A_LAYER times an MLA layer, the dispatch's
+    MOE_LAUNCHES_A_LAYER times a MoE layer, none from a replay; with the
+    replayed step's time (CUDA events over ``steps`` steps) and the peak."""
+    import torch
+
+    from tpudash_torch.models import graphed
+    from tpudash_torch.models import kimi_linear as KL
+    from tpudash_torch.ops import kernels as K
+
+    cfg = KL.KimiLinearConfig()
+    gen_t = torch.Generator(device=dev).manual_seed(SEED + 30)
+    params, opt = KL.make_train_state(cfg, gen_t)
+    counters = KL.routing_counters(cfg, dev)
+    step = KL.make_train_step(cfg, dev, counters)
+    tokens = torch.randint(0, cfg.vocab, (cfg.batch, cfg.seq), generator=gen_t, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss0 = step(params, opt, tokens).item()
+    first_s = time.perf_counter() - t0
+    first = K.launch_counts()
+    K.reset_launch_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        loss = step(params, opt, tokens)
+    end.record()
+    end.synchronize()
+    replay = K.launch_counts()
+    counted = graphed.WARMUP_STEPS + 1
+    per_step = {n: c / counted for n, c in first.items() if c}
+    n_kda = sum(cfg.is_kda(i) for i in range(cfg.n_layers))
+    want = {**{n: c * n_kda for n, c in KDA_LAUNCHES_A_LAYER.items()},
+            **{n: c * (cfg.n_layers - n_kda) for n, c in MLA_LAUNCHES_A_LAYER.items()}}
+    check({n: per_step.get(n, 0) for n in want} == want,
+          f"Kimi-Linear launches a step {per_step}, want {want}")
+    moe = sum(per_step.get(k.name, 0) for k in K.MOE_KERNELS)
+    check(moe == MOE_LAUNCHES_A_LAYER * (cfg.n_layers - cfg.first_k_dense),
+          f"dispatch launches a Kimi-Linear step {moe}")
+    check(all(v == 0 for v in replay.values()), f"a replay launched from the host: {replay}")
+    check(math.isfinite(loss0) and math.isfinite(loss.item()), "the step's loss is not finite")
+    out = {"per_step": per_step, "first_call": first, "replay": replay, "first_call_s": first_s,
+           "step_ms": start.elapsed_time(end) / steps,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev), "loss0": loss0}
+    del params, opt, step, counters
+    gc_cuda([dev])
+    return out
+
+
+def kda_phase(dev, card: str, gen, timing: bool = True) -> dict:
+    """3g: the KDA kernels against their plain versions (kda_checks) at the
+    cell's shapes and at KDA_EDGE_SHAPES, the chunked rule on the card
+    against the host's chain (kda_chain_check); the launches, step time and
+    peak of one graphed Kimi-Linear step (kimi_step_launches); with
+    ``timing``, each kernel's time with L2 emptied and warm, and a call's
+    kernels against the least time of a call (kda_call_bytes over the HBM
+    rate)."""
+    import torch
+
+    from tpudash_torch.ops import kernels as K
+
+    out = {"checks": kda_checks(dev, KDA_SHAPE, SEED + 30, card, KDA_PAIR_CHECK_CHUNKS)}
+    gc_cuda([dev])
+    for i, sh in enumerate(KDA_EDGE_SHAPES):
+        kda_checks(dev, sh, SEED + 31 + i, card)
+    out["chain"] = kda_chain_check(dev, dict(B=1, T=300, H=2), SEED + 34, card)
+    gc_cuda([dev])
+    st = out["step"] = kimi_step_launches(dev)
+    kda = {k.name: st["per_step"].get(k.name, 0) for k in K.KDA_KERNELS}
+    print(f"Kimi-Linear graphed step at the cell's defaults [{card}]: KDA launches a step {kda}; "
+          f"all {sum(st['per_step'].values()):.0f} launches a step "
+          f"{json.dumps(st['per_step'])}; none from a replay; first call (two eager warm-up steps "
+          f"and the capture) {st['first_call_s']:.1f} s; {st['step_ms']:.1f} ms a replayed step; "
+          f"peak {st['peak_bytes'] / 1e9:.2f} GB")
+    if not timing:
+        return out
+    x = kda_inputs(dev, KDA_SHAPE, SEED + 35)
+    pc = _kda_pieces(x)
+    q, k, G, w, u, kd, gamma = (pc[n] for n in ("q", "k", "G", "w", "u", "kd", "gamma"))
+    g = torch.Generator(device=dev).manual_seed(SEED + 36)
+    akk, _ = K.kda_pairs_forward(q, k, G)
+    da, db = torch.randn(akk.shape, generator=g, device=dev), torch.randn(akk.shape, generator=g, device=dev)
+    states, v_new = K.kda_state_forward(w, u, kd, gamma)
+    gS = torch.randn(states.shape, generator=g, device=dev)
+    gv = torch.randn(v_new.shape, generator=g, device=dev)
+    del akk, states, v_new
+    fns = {"kda_pairs_fwd": lambda: K.kda_pairs_forward(q, k, G),
+           "kda_state_fwd": lambda: K.kda_state_forward(w, u, kd, gamma),
+           "kda_pairs_bwd": lambda: K.kda_pairs_backward(q, k, G, da, db),
+           "kda_state_bwd": lambda: K.kda_state_backward(w, kd, gamma, gS, gv)}
+    hbm = gen.hbm_gbps * 1e9
+    flush = torch.ones(64 * 2**20, device=dev)
+    flush_ms = graph_ms(lambda: flush.sum(), dev)
+    out["timing"] = {}
+    for name, fn in fns.items():
+        tm = {"kernel_graph": graph_ms(fn, dev, n=3, reps=5),
+              "kernel_cold": graph_ms(lambda fn=fn: (flush.sum(), fn()), dev, n=3, reps=5) - flush_ms}
+        out["timing"][name] = tm
+        gc_cuda([dev])
+    for side, backward in (("fwd", False), ("bwd", True)):
+        call = sum(out["timing"][f"kda_{n}_{side}"]["kernel_cold"] for n in ("pairs", "state"))
+        bound = kda_call_bytes(KDA_SHAPE, backward) / hbm * 1e3
+        for n in ("pairs", "state"):
+            out["timing"][f"kda_{n}_{side}"].update(bound_ms=bound, call_ms=call)
+        print(f"kda_pairs_{side} + kda_state_{side} at the cell's shapes [{card}]: "
+              f"{out['timing'][f'kda_pairs_{side}']['kernel_cold']:.3f} + "
+              f"{out['timing'][f'kda_state_{side}']['kernel_cold']:.3f} ms with L2 emptied before "
+              f"each call ({out['timing'][f'kda_pairs_{side}']['kernel_graph']:.3f} + "
+              f"{out['timing'][f'kda_state_{side}']['kernel_graph']:.3f} ms warm); a call's bound "
+              f"{bound:.4f} ms ({kda_call_bytes(KDA_SHAPE, backward) / 1e6:.1f} MB): "
+              f"{100 * bound / call:.2f} % of it")
+    del flush, q, k, G, w, u, kd, gamma, da, db, gS, gv, pc, x
+    gc_cuda([dev])
+    return out
+
+
 def graph_ms(fn, dev, n: int = 20, reps: int = 9) -> float:
     """Median ms a call of ``fn`` with ``n`` calls captured in one CUDA graph
     and replayed: device time without the host's launch cost."""
@@ -3225,6 +3524,9 @@ def main() -> int:
     # -- 3f. MLA's RoPE and q/k assembly kernels at the cell's shapes ----------------
     mla = mla_rope_phase(dev, card, gen, step=moe_dispatch["step"])
 
+    # -- 3g. Kimi-Linear's KDA kernels, and the Kimi-Linear step -----------------------
+    kda = kda_phase(dev, card, gen)
+
     # -- 3a-3c. the exporter as deployed: prebuilt kernels with no compiler, the
     # image's build stage with no GPU, the DaemonSet's command --------------------
     with tempfile.TemporaryDirectory(prefix="tpudash-deploy-") as tmp:
@@ -3302,7 +3604,7 @@ def main() -> int:
               f"{label} bandwidth {r.value} GB/s vs peak {gen.hbm_gbps}")
     check(bench_counts == {"hbm_read": (10 + 410) * 6, "hbm_copy": (5 + 205) * 6,
                            **{k.name: 0 for k in (*kernels.NORM_KERNELS, *kernels.MOE_KERNELS,
-                                                  *kernels.MLA_KERNELS)}},
+                                                  *kernels.MLA_KERNELS, *kernels.KDA_KERNELS)}},
           f"bench launches {bench_counts}")
     print(f"probe bench path [{card}]: matmul 4096/64 {mm.value:.2f} TFLOP/s "
           f"({100 * mm.value / gen.peak_bf16_tflops:.2f} % of peak); read 256 MiB k1=10 k2=410 "
@@ -3374,8 +3676,9 @@ def main() -> int:
         took = time.perf_counter() - t0
         c = new_counts[path] = kernels.launch_counts()
         norms = c["rmsnorm_fwd"] > 0 and c["rmsnorm_bwd"] > 0
-        check(c["hbm_copy"] == 0 and (c["hbm_read"] > 0) == reads and (not trains or norms),
-              f"{path} path launches {c}")
+        kda = sum(c[k.name] for k in kernels.KDA_KERNELS)
+        check(c["hbm_copy"] == 0 and (c["hbm_read"] > 0) == reads and (not trains or norms)
+              and kda == 0, f"{path} path launches {c}")
         print(f"{path} path: launches {c}; {took:.1f} s")
 
     def pipelines() -> None:
@@ -3527,8 +3830,20 @@ def main() -> int:
             "per_step": mla["step"]["per_step"][name],
             "launches_by_path": {path: c[name] for path, c in paths.items()}})
 
+    for name, t in kda["timing"].items():
+        entries.append({
+            "name": name, "route": "cuda", "source": "tpudash_torch/ops/csrc/kda.cu",
+            "replaces": "none (the JAX package has no linear attention; models/kimi_linear.py's "
+                        "chunked gated delta rule, kernels.kda_chunk)",
+            "launches": kda["step"]["first_call"][name], "max_abs_err": None,
+            "worst": kda["checks"], "ms": t["kernel_cold"], "graph_ms": t["kernel_graph"],
+            "chain_ms": None, "bound_ms": t["bound_ms"], "call_ms": t["call_ms"],
+            "bound_by": "bytes (a call's, both kernels)", "path": "Kimi-Linear train step",
+            "per_step": kda["step"]["per_step"].get(name, 0),
+            "launches_by_path": {path: c[name] for path, c in paths.items()}})
+
     for e in entries:
-        if "chain_ms" in e:  # printed by moe_dispatch_phase and mla_rope_phase
+        if "chain_ms" in e:  # printed by moe_dispatch_phase, mla_rope_phase and kda_phase
             continue
         if "device_ms" not in e:
             print(f"{e['name']} at {e['shape']} bf16 [{card}]: {e['ms'] * 1e3:.2f} us with L2 "

@@ -216,8 +216,8 @@ def test_the_mla_kernels_share_one_source_and_count_their_launches():
     names = [k.name for k in K.MLA_KERNELS]
     assert names == ["mla_rope_fwd", "mla_rope_bwd"]
     assert set(names) <= set(K.launch_counts())
-    assert len(K.KERNELS) == len({k.name for k in K.KERNELS}) == 12
-    assert len({k.source for k in K.KERNELS}) == 5
+    assert len(K.KERNELS) == len({k.name for k in K.KERNELS}) == 16
+    assert len({k.source for k in K.KERNELS}) == 6
 
 
 def test_no_mla_kernel_name_is_read_as_attention():

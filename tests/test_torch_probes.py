@@ -225,11 +225,13 @@ def test_reset_launch_counts_zeroes_every_kernel():
     kernels.RMSNORM_BWD.launches = 2
     kernels.MOE_COMBINE_BWD.launches = 5
     kernels.MLA_ROPE_BWD.launches = 7
+    kernels.KDA_STATE_BWD.launches = 11
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {
         "hbm_read": 0, "hbm_copy": 0, "rmsnorm_fwd": 0, "rmsnorm_bwd": 0,
         "moe_gather_fwd": 0, "moe_gather_bwd": 0, "moe_swiglu_fwd": 0, "moe_swiglu_bwd": 0,
-        "moe_combine_fwd": 0, "moe_combine_bwd": 0, "mla_rope_fwd": 0, "mla_rope_bwd": 0}
+        "moe_combine_fwd": 0, "moe_combine_bwd": 0, "mla_rope_fwd": 0, "mla_rope_bwd": 0,
+        "kda_pairs_fwd": 0, "kda_pairs_bwd": 0, "kda_state_fwd": 0, "kda_state_bwd": 0}
 
 
 def test_missing_nvcc_is_a_clear_error(monkeypatch, tmp_path):

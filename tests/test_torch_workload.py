@@ -666,12 +666,13 @@ def test_rmsnorm_function_wires_its_kernels_into_autograd(monkeypatch):
     returns both gradients as autograd of the plain forward has them."""
     seen = {}
 
-    def forward(x, scale):
-        return K.rmsnorm_ref(x, scale)
+    def forward(x, scale, eps):
+        return K.rmsnorm_ref(x, scale, eps)
 
-    def backward(x, scale, g):
+    def backward(x, scale, g, eps):
         seen["contiguous"] = g.is_contiguous()
-        dx, dscale = K.rmsnorm_grads_ref(x, scale, g)
+        seen["eps"] = eps
+        dx, dscale = K.rmsnorm_grads_ref(x, scale, g, eps)
         return dx.to(torch.bfloat16), dscale
 
     monkeypatch.setattr(K, "rmsnorm_forward", forward)
@@ -681,7 +682,7 @@ def test_rmsnorm_function_wires_its_kernels_into_autograd(monkeypatch):
     K.rmsnorm(xk, sk).float().sum().backward()
     xp, sp = x.clone().requires_grad_(True), scale.clone().requires_grad_(True)
     K.rmsnorm_ref(xp, sp).float().sum().backward()
-    assert seen == {"contiguous": True}
+    assert seen == {"contiguous": True, "eps": K.NORM_EPS}
     assert xk.grad.dtype == torch.bfloat16 and sk.grad.dtype == torch.float32
     assert (xk.grad.float() - xp.grad.float()).abs().max() <= U * xp.grad.float().abs().max()
     assert torch.allclose(sk.grad, sp.grad, rtol=1e-5, atol=1e-5)

@@ -33,7 +33,8 @@ class Config:
     workload_checkpoint_dir: str = ""
     workload_checkpoint_every: int = 64
     #: source="workload": the model it trains, "demo" (the demo transformer,
-    #: over every GPU) or "deepseek-v2-lite" (models/deepseek_v2.py, one GPU)
+    #: over every GPU), "deepseek-v2-lite" (models/deepseek_v2.py, one GPU) or
+    #: "kimi-linear" (models/kimi_linear.py, one GPU)
     workload_model: str = "demo"
     extra: dict = field(default_factory=dict)
 

@@ -79,6 +79,9 @@ from tpudash_torch.models import moe, workload
 from tpudash_torch.models.graphed import compiled
 from tpudash_torch.ops import kernels
 
+#: the workload source's name of the model
+NAME = "deepseek-v2-lite"
+
 
 @dataclass(frozen=True)
 class DeepseekV2Config:
@@ -105,6 +108,8 @@ class DeepseekV2Config:
     norm_topk_prob: bool = False
     routed_scaling_factor: float = 1.0
     aux_loss_alpha: float = 0.001
+    #: RMSNorm's eps (the released config's rms_norm_eps)
+    norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     rope_factor: float = 40.0
     original_max_position_embeddings: int = 4096
@@ -275,13 +280,15 @@ def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _mla(x, lp: dict, cos, sin, cfg: DeepseekV2Config) -> torch.Tensor:
-    """Multi-head latent attention of the normed (B, T, d) stream."""
+    """Multi-head latent attention of the normed (B, T, d) stream.  ``cfg``
+    gives the widths, ``norm_eps`` and ``softmax_scale``; Kimi-Linear's
+    config passes as well (its NoPE layers take tables of cos 1, sin 0)."""
     B, T, _ = x.shape
     H, nope, rope, r = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
     with record_function("dsv2.mla"):
         q = torch.matmul(x, lp["wq"]).view(B, T, H, nope + rope)
         kv_a = torch.matmul(x, lp["wkv_a"])
-        c = workload._rmsnorm(kv_a[..., :r].contiguous(), lp["kv_norm"])
+        c = workload._rmsnorm(kv_a[..., :r].contiguous(), lp["kv_norm"], cfg.norm_eps)
         kv = torch.matmul(c, lp["wkv_b"]).view(B, T, H, nope + cfg.v_head_dim)
         q, k, v = kernels.mla_qk_rope(q, kv, kv_a, cos, sin)
         o = _attention_core(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),

@@ -149,6 +149,12 @@ def graph_train_step(step: Callable, params, optimizer: torch.optim.Optimizer,
         for d in devices:
             torch.cuda.synchronize(d)
         gc.collect()  # no garbage tensor is freed during the capture
+        for d in devices:
+            # the warm-up's freed blocks stay cached in the default pool, where
+            # the capture's private pool cannot reuse them: hand them back, so
+            # that a step whose activations fill most of a card still captures
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
         # the graph pools the home device's allocations; the others' go to
         # the same pool id on their devices, released with the graph
         for d in others:

@@ -12,10 +12,11 @@ once, at the first call, as one CUDA graph over every device and replayed
 with one launch a step, as the reference dispatches one ``jax.jit``
 program a step; on the CPU, which only tests ask for, it runs eagerly.
 
-Given a ``DeepseekV2Config`` it trains DeepSeek-V2-Lite
-(``models/deepseek_v2.py``) instead, on one device only (the runner refuses
-more), and reports the routing counters of each sync interval beside the
-step's series.
+Given the config of a one-GPU model (:data:`ONE_GPU_MODELS`: a
+``DeepseekV2Config`` for DeepSeek-V2-Lite, ``models/deepseek_v2.py``, or a
+``KimiLinearConfig`` for Kimi-Linear, ``models/kimi_linear.py``) it trains
+that model instead, on one device only (the runner refuses more), and
+reports the routing counters of each sync interval beside the step's series.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import time
 
 import torch
 
-from tpudash_torch.models import deepseek_v2 as dsv2
+from tpudash_torch.models import deepseek_v2, kimi_linear
 from tpudash_torch.models.graphed import compiled
 from tpudash_torch.models.workload import (
     WorkloadConfig,
@@ -40,6 +41,12 @@ from tpudash_torch.models.workload import (
 from tpudash_torch.parallel.mesh import build_mesh, local_devices, mesh_axes_for
 
 _log = logging.getLogger(__name__)
+
+#: the one-GPU models by their config's class: each module has ``NAME``,
+#: ``make_train_state``, ``make_train_step``, ``routing_counters``,
+#: ``load_stats`` and ``flops_per_step``
+ONE_GPU_MODELS = {deepseek_v2.DeepseekV2Config: deepseek_v2,
+                  kimi_linear.KimiLinearConfig: kimi_linear}
 
 
 def training_devices(device=None, devices=None) -> list[torch.device]:
@@ -69,10 +76,11 @@ class WorkloadRunner:
     ):
         self.cfg = cfg or WorkloadConfig()
         self.devices = training_devices(device, devices)
-        self.dsv2 = isinstance(self.cfg, dsv2.DeepseekV2Config)
-        if self.dsv2 and len(self.devices) > 1:
+        #: the one-GPU model's module, None for the demo model
+        self.model = ONE_GPU_MODELS.get(type(self.cfg))
+        if self.model is not None and len(self.devices) > 1:
             raise ValueError(
-                f"the deepseek-v2-lite workload trains on one GPU, not {len(self.devices)}: "
+                f"the {self.model.NAME} workload trains on one GPU, not {len(self.devices)}: "
                 "its experts are not sharded over GPUs yet; give it one device "
                 "(CUDA_VISIBLE_DEVICES) or train the demo model")
         #: dispatch this many steps back to back before one host readback:
@@ -92,7 +100,7 @@ class WorkloadRunner:
         self.step_time_ema = float("nan")  # seconds
         self.error: str | None = None
         self.resumed_from: int | None = None
-        #: deepseek-v2-lite: routing series of the last sync interval
+        #: a one-GPU model: routing series of the last sync interval
         self.routing: dict = {}
 
     # -- lifecycle -----------------------------------------------------------
@@ -120,10 +128,11 @@ class WorkloadRunner:
         try:
             cfg, devs = self.cfg, self.devices
             dev = devs[0]
-            params, optimizer = (dsv2.make_train_state if self.dsv2 else make_train_state)(
+            model = self.model
+            params, optimizer = (model.make_train_state if model else make_train_state)(
                 cfg, torch.Generator(device=dev).manual_seed(0)
             )
-            counters = dsv2.routing_counters(cfg, dev) if self.dsv2 else None
+            counters = model.routing_counters(cfg, dev) if model else None
 
             # checkpointing is best-effort: an unwritable dir, a corrupt
             # checkpoint or one of another package must degrade to "train
@@ -152,8 +161,8 @@ class WorkloadRunner:
 
                 def full_state():  # a checkpoint holds the gathered state
                     return gather_train_state(params, optimizer, plan)
-            elif self.dsv2:
-                step = dsv2.make_train_step(cfg, dev, counters)
+            elif model:
+                step = model.make_train_step(cfg, dev, counters)
 
                 def full_state():
                     return params, optimizer
@@ -167,7 +176,7 @@ class WorkloadRunner:
             data_gen = torch.Generator(device=dev).manual_seed(1)
             k = self.steps_per_sync
             last_saved = self.steps
-            last_counts = [0] * (cfg.n_held + 1) if self.dsv2 else None
+            last_counts = [0] * (cfg.n_held + 1) if model else None
             while not self._stop.is_set():
                 t0 = time.perf_counter()
                 loss = None
@@ -182,7 +191,7 @@ class WorkloadRunner:
                 if counters is not None:  # read after the sync: no extra one
                     now = counters.tolist()
                     delta = [a - b for a, b in zip(now, last_counts)]
-                    routing = dsv2.load_stats(delta[:-1], delta[-1], cfg)
+                    routing = model.load_stats(delta[:-1], delta[-1], cfg)
                     last_counts = now
                 with self._lock:
                     if routing is not None:
@@ -217,9 +226,9 @@ class WorkloadRunner:
                 raise RuntimeError(self.error)
             st = self.step_time_ema
             ok = st == st and st > 0
-            if self.dsv2:
+            if self.model:
                 per = self.routing.get("moe_tokens_per_held_expert")
-                flops = dsv2.flops_per_step(self.cfg, sum(per) if per else None)
+                flops = self.model.flops_per_step(self.cfg, sum(per) if per else None)
             else:
                 flops = flops_per_step(self.cfg)
             return {

@@ -145,13 +145,13 @@ def _unflatten(pairs) -> dict:
 
 # --- forward ----------------------------------------------------------------
 
-def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = kernels.NORM_EPS) -> torch.Tensor:
     """RMSNorm over the last dim in f32, rounded once to bf16: on a GPU the
     hand-written kernels, forward and backward (``kernels.rmsnorm``; x
     contiguous bf16, d a multiple of 8), on the CPU their plain version."""
     if x.is_cuda:
-        return kernels.rmsnorm(x, scale)
-    return kernels.rmsnorm_ref(x, scale)
+        return kernels.rmsnorm(x, scale, eps)
+    return kernels.rmsnorm_ref(x, scale, eps)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,12 @@
 // RMSNorm of the model step, forward and backward, over the rows of a
 // contiguous (rows, d) bf16 x with an f32 scale of length d:
-//   y      = bf16((f32(x) * r) * scale),  r = rsqrt(mean(f32(x)^2) + 1e-6)
+//   y      = bf16((f32(x) * r) * scale),  r = rsqrt(mean(f32(x)^2) + eps)
 //   dx     = bf16(r * (g * scale - xh * mean(g * scale * xh))),  xh = f32(x) * r
 //   dscale = sum over rows of f32(g) * xh
 // with every step in f32 and one rounding to bf16, at the reference's
 // rounding points (tpudash/models/workload.py::_rmsnorm, and autograd of it).
+// eps is the caller's: 1e-6 for the demo model and DeepSeek-V2-Lite, 1e-5
+// for Kimi-Linear.
 //
 // Replaces no Pallas kernel: the reference leaves the norm to XLA, which
 // fuses it.  Plain PyTorch runs the same expression as ~8 full f32 passes
@@ -58,7 +60,6 @@ constexpr int kMaxVecs = 4;              // 16-byte vectors a thread holds of it
 constexpr int kMaxBackwardBlocks = 264;  // two blocks on each of an H100's 132 SMs
 constexpr int kFinishSegments = kWarps;
 constexpr int kFinishUnroll = 8;
-constexpr float kEps = 1e-6f;
 
 __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
@@ -110,7 +111,7 @@ __device__ __forceinline__ float team_sum(float v, float* red) {
 template <int VPT, int WPR>
 __global__ void __launch_bounds__(kThreads, 2)
 rmsnorm_forward(const uint4* __restrict__ x, const float4* __restrict__ scale,
-                uint4* __restrict__ y, int rows, int d8) {
+                uint4* __restrict__ y, int rows, int d8, float eps) {
   __shared__ float red[kWarps];
   constexpr int kTeams = kWarps / WPR;
   const int t = threadIdx.x % (32 * WPR);
@@ -130,7 +131,7 @@ rmsnorm_forward(const uint4* __restrict__ x, const float4* __restrict__ scale,
     for (int i = 0; i < 8; ++i) ss += f[i] * f[i];
   }
   ss = team_sum<WPR>(ss, red);
-  const float r = rsqrtf(ss / static_cast<float>(8 * d8) + kEps);
+  const float r = rsqrtf(ss / static_cast<float>(8 * d8) + eps);
   if (!live) return;  // past the last barrier
 #pragma unroll
   for (int k = 0; k < VPT; ++k) {
@@ -149,7 +150,8 @@ template <int VPT, int WPR>
 __global__ void __launch_bounds__(kThreads, 2)
 rmsnorm_backward(const uint4* __restrict__ x, const float4* __restrict__ scale,
                  const uint4* __restrict__ g, uint4* __restrict__ dx,
-                 float4* __restrict__ partial, int rows, int d8) {
+                 float4* __restrict__ partial, int rows, int d8,
+                 float eps) {
   __shared__ float red[kWarps];
   __shared__ float4 colsum[kMaxD / 4];
   constexpr int kTeams = kWarps / WPR;
@@ -185,7 +187,7 @@ rmsnorm_backward(const uint4* __restrict__ x, const float4* __restrict__ scale,
       for (int i = 0; i < 8; ++i) ss += f[i] * f[i];
     }
     ss = team_sum<WPR>(ss, red);
-    const float r = rsqrtf(ss / d + kEps);
+    const float r = rsqrtf(ss / d + eps);
     float dot = 0.f;
 #pragma unroll
     for (int k = 0; k < VPT; ++k) {
@@ -318,8 +320,8 @@ bool plan_ok(int rows, int d, int vpt, int wpr) {
   X(3, 4) X(4, 4) X(1, 8) X(2, 8) X(3, 8) X(4, 8)
 
 extern "C" int tpudash_rmsnorm_forward(const void* x, const float* scale, void* y, int rows,
-                                       int d, int vpt, int wpr, int grid, int device,
-                                       cudaStream_t stream) {
+                                       int d, int vpt, int wpr, int grid, float eps,
+                                       int device, cudaStream_t stream) {
   if (!plan_ok(rows, d, vpt, wpr) || grid < 1 ||
       static_cast<long long>(grid) * (kWarps / wpr) < rows)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -330,7 +332,7 @@ extern "C" int tpudash_rmsnorm_forward(const void* x, const float* scale, void* 
   if (vpt == V && wpr == W) {                                                         \
     rmsnorm_forward<V, W><<<grid, kThreads, 0, stream>>>(                             \
         static_cast<const uint4*>(x), reinterpret_cast<const float4*>(scale),        \
-        static_cast<uint4*>(y), rows, d8);                                            \
+        static_cast<uint4*>(y), rows, d8, eps);                                       \
     return static_cast<int>(cudaGetLastError());                                      \
   }
   TPUDASH_NORM_PLANS(TPUDASH_LAUNCH)
@@ -340,8 +342,8 @@ extern "C" int tpudash_rmsnorm_forward(const void* x, const float* scale, void* 
 
 extern "C" int tpudash_rmsnorm_backward(const void* x, const float* scale, const void* g,
                                         void* dx, float* partial, float* dscale, int rows,
-                                        int d, int vpt, int wpr, int grid, int device,
-                                        cudaStream_t stream) {
+                                        int d, int vpt, int wpr, int grid, float eps,
+                                        int device, cudaStream_t stream) {
   if (!plan_ok(rows, d, vpt, wpr) || grid < 1 || grid > kMaxBackwardBlocks)
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceScope scope(device);
@@ -353,7 +355,7 @@ extern "C" int tpudash_rmsnorm_backward(const void* x, const float* scale, const
     rmsnorm_backward<V, W><<<grid, kThreads, 0, stream>>>(                            \
         static_cast<const uint4*>(x), reinterpret_cast<const float4*>(scale),        \
         static_cast<const uint4*>(g), static_cast<uint4*>(dx),                       \
-        reinterpret_cast<float4*>(partial), rows, d8);                                \
+        reinterpret_cast<float4*>(partial), rows, d8, eps);                           \
     launched = true;                                                                  \
   }
   TPUDASH_NORM_PLANS(TPUDASH_LAUNCH)

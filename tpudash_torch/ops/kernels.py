@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the probes and the model step: loader,
 wrappers, plain versions.
 
-Twelve kernels, from five CUDA C++ sources under ``csrc/``:
+Sixteen kernels, from six CUDA C++ sources under ``csrc/``:
 
 - ``hbm_read`` (``csrc/hbm_read.cu``) replaces the Pallas
   ``_hbm_read_kernel``: ``out(1, cols) = prev + Σ_rows x``.
@@ -24,6 +24,12 @@ Twelve kernels, from five CUDA C++ sources under ``csrc/``:
   attention's q, k and v and back, each byte once; :func:`mla_qk_rope` is
   the autograd function over them.  They replace no Pallas kernel: the JAX
   package has no MLA and no RoPE.
+- ``kda_pairs_fwd``/``_bwd`` and ``kda_state_fwd``/``_bwd``
+  (``csrc/kda.cu``): the chunked gated delta rule of Kimi-Linear's KDA
+  layers (``models/kimi_linear.py``), the decay-weighted k·kᵀ and q·kᵀ
+  blocks of every chunk and the state pass over a sequence's chunks, each
+  way; :func:`kda_chunk` is the chunked algorithm around them.  They replace
+  no Pallas kernel: the JAX package has no linear attention.
 
 Build: the first time a kernel is asked for on a CUDA tensor, ``nvcc``
 compiles its source for ``sm_90a`` into a shared library with a plain C
@@ -59,6 +65,7 @@ from pathlib import Path
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 #: nvcc's output directory, made on first use (listed in .gitignore).
@@ -165,13 +172,13 @@ HBM_COPY = CudaKernel(
 )
 RMSNORM_FWD = CudaKernel(
     "rmsnorm_fwd", "rmsnorm.cu", "tpudash_rmsnorm_forward",
-    # x, scale, y, rows, d, then a NormPlan's vecs, warps, forward_grid
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5,
+    # x, scale, y, rows, d, then a NormPlan's vecs, warps, forward_grid, then eps
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float],
 )
 RMSNORM_BWD = CudaKernel(
     "rmsnorm_bwd", "rmsnorm.cu", "tpudash_rmsnorm_backward",
-    # x, scale, g, dx, partial, dscale, rows, d, then vecs, warps, backward_grid
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
+    # x, scale, g, dx, partial, dscale, rows, d, then vecs, warps, backward_grid, eps
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float],
 )
 #: the MoE dispatch's kernels (csrc/moe_dispatch.cu); every one ends in the
 #: grid, and those over tokens take S, K, cap and d before it
@@ -217,12 +224,37 @@ MLA_ROPE_BWD = CudaKernel(
     # dq, dk, dv, cos, sin, dq_raw, dkv, dkv_a, then the (b, t, h) strides of dq, dk, dv
     [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 8,
 )
+#: Kimi Delta Attention's chunked passes (csrc/kda.cu): the decay-weighted
+#: pair blocks of each chunk and the state pass over a sequence's chunks,
+#: each way
+KDA_PAIRS_FWD = CudaKernel(
+    "kda_pairs_fwd", "kda.cu", "tpudash_kda_pairs_forward",
+    # q, k, G, akk, aqk, then the chunks
+    [ctypes.c_void_p] * 5 + [ctypes.c_int],
+)
+KDA_PAIRS_BWD = CudaKernel(
+    "kda_pairs_bwd", "kda.cu", "tpudash_kda_pairs_backward",
+    # q, k, G, dakk, daqk, dq, dk, dG, then the chunks
+    [ctypes.c_void_p] * 8 + [ctypes.c_int],
+)
+KDA_STATE_FWD = CudaKernel(
+    "kda_state_fwd", "kda.cu", "tpudash_kda_state_forward",
+    # w, u, kd, gamma, states, v_new, then the heads (B·H) and the chunks a head
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2,
+)
+KDA_STATE_BWD = CudaKernel(
+    "kda_state_bwd", "kda.cu", "tpudash_kda_state_backward",
+    # w, kd, gamma, gS, gv, dnext, dv_new, then the heads and the chunks a head
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2,
+)
 NORM_KERNELS: tuple[CudaKernel, ...] = (RMSNORM_FWD, RMSNORM_BWD)
 MOE_KERNELS: tuple[CudaKernel, ...] = (MOE_GATHER_FWD, MOE_GATHER_BWD, MOE_SWIGLU_FWD,
                                        MOE_SWIGLU_BWD, MOE_COMBINE_FWD, MOE_COMBINE_BWD)
 MLA_KERNELS: tuple[CudaKernel, ...] = (MLA_ROPE_FWD, MLA_ROPE_BWD)
+KDA_KERNELS: tuple[CudaKernel, ...] = (KDA_PAIRS_FWD, KDA_PAIRS_BWD, KDA_STATE_FWD,
+                                       KDA_STATE_BWD)
 KERNELS: tuple[CudaKernel, ...] = (HBM_READ, HBM_COPY, *NORM_KERNELS, *MOE_KERNELS,
-                                   *MLA_KERNELS)
+                                   *MLA_KERNELS, *KDA_KERNELS)
 
 
 def build_kernels(kernels: "list[CudaKernel] | tuple[CudaKernel, ...]" = KERNELS) -> float:
@@ -448,20 +480,21 @@ def _norm_plan(rows: int, d: int) -> NormPlan:
     return NormPlan(vecs, warps, grid, min(grid, _NORM_BACKWARD_BLOCKS))
 
 
-def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = NORM_EPS) -> torch.Tensor:
     """Plain version of the forward: ``bf16((f32(x) · r) · scale)`` with
-    ``r = rsqrt(mean(f32(x)²) + 1e-6)``, the reference's expression."""
+    ``r = rsqrt(mean(f32(x)²) + eps)``, the reference's expression."""
     x32 = x.float()
-    rms = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + NORM_EPS)
+    rms = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
     return (x32 * rms * scale).to(torch.bfloat16)
 
 
-def rmsnorm_grads_ref(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor):
+def rmsnorm_grads_ref(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                      eps: float = NORM_EPS):
     """Plain version of the backward, in the closed form the kernel
     computes, all in f32: ``(dx, dscale)`` with ``dx = r·(g·s − x̂·mean(g·s·x̂))``
     before its rounding to bf16 and ``dscale = Σ_rows g·x̂``, ``x̂ = f32(x)·r``."""
     x32, g32 = x.float(), g.float()
-    r = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + NORM_EPS)
+    r = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
     xh = x32 * r
     gs = g32 * scale
     mean = (gs * xh).sum(-1, keepdim=True) / x.shape[-1]
@@ -495,8 +528,8 @@ def _check_norm_args(x: torch.Tensor, scale: torch.Tensor, g: "torch.Tensor | No
         _check_card_tensor(t, what)
 
 
-def rmsnorm_forward(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """The forward kernel: ``rmsnorm_ref(x, scale)`` over the last dim of a
+def rmsnorm_forward(x: torch.Tensor, scale: torch.Tensor, eps: float = NORM_EPS) -> torch.Tensor:
+    """The forward kernel: ``rmsnorm_ref(x, scale, eps)`` over the last dim of a
     contiguous bf16 ``x`` on a GPU, as a new bf16 tensor."""
     _check_norm_args(x, scale)
     y = torch.empty_like(x)
@@ -504,12 +537,12 @@ def rmsnorm_forward(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     if rows:
         plan = _norm_plan(rows, d)
         RMSNORM_FWD.launch(x.device, x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d,
-                           plan.vecs, plan.warps, plan.forward_grid)
+                           plan.vecs, plan.warps, plan.forward_grid, eps)
     return y
 
 
-def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor,
-                     g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                     eps: float = NORM_EPS) -> tuple[torch.Tensor, torch.Tensor]:
     """The backward kernels: ``(dx, dscale)`` for the upstream gradient ``g``
     of ``rmsnorm_forward(x, scale)``, dx bf16 and dscale f32, as
     :func:`rmsnorm_grads_ref` computes them (dx rounded once)."""
@@ -523,7 +556,7 @@ def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor,
     dscale = torch.empty_like(scale)
     RMSNORM_BWD.launch(x.device, x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
                        partial.data_ptr(), dscale.data_ptr(), rows, d,
-                       plan.vecs, plan.warps, plan.backward_grid)
+                       plan.vecs, plan.warps, plan.backward_grid, eps)
     return dx, dscale
 
 
@@ -532,21 +565,22 @@ class _RMSNorm(torch.autograd.Function):
     and scale only: the backward recomputes r from x."""
 
     @staticmethod
-    def forward(ctx, x, scale):
+    def forward(ctx, x, scale, eps):
         ctx.save_for_backward(x, scale)
-        return rmsnorm_forward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_forward(x, scale, eps)
 
     @staticmethod
     def backward(ctx, g):
         x, scale = ctx.saved_tensors
-        return rmsnorm_backward(x, scale, g.contiguous())
+        return (*rmsnorm_backward(x, scale, g.contiguous(), ctx.eps), None)
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = NORM_EPS) -> torch.Tensor:
     """:func:`rmsnorm_ref` through the kernels, differentiable in both
     arguments; raises on what the kernels do not take, a CPU tensor
     included."""
-    return _RMSNorm.apply(x, scale)
+    return _RMSNorm.apply(x, scale, eps)
 
 
 # --- MoE dispatch ----------------------------------------------------------------
@@ -1059,3 +1093,282 @@ def mla_qk_rope(q_raw: torch.Tensor, kv: torch.Tensor, kv_a: torch.Tensor, cos: 
     if _on_cpu(q_raw):
         return mla_qk_rope_ref(q_raw, kv, kv_a, cos, sin)
     return _MLAQKRope.apply(q_raw, kv, kv_a, cos, sin)
+
+
+# --- Kimi Delta Attention, chunked -------------------------------------------------
+#
+# The gated delta rule of a KDA layer (models/kimi_linear.py), per head with
+# S₀ = 0:  S′ₜ = Diag(αₜ)·Sₜ₋₁,  Sₜ = S′ₜ + βₜ kₜ (vₜ − S′ₜᵀkₜ)ᵀ,  oₜ = scale·Sₜᵀqₜ,
+# αₜ = exp(gₜ) per key channel.  By chunks of C positions (the WY form of
+# Gated DeltaNet with a decay per channel), with G the cumulative sum of g
+# inside the chunk, every exponent a difference G_t − G_s with s ≤ t (or
+# G_C − G_s, or G_t alone), never positive:
+#
+#   Akk[t, s] = Σ_c k_t k_s e^{G_t − G_s}  (s < t),  Aqk[t, s] = Σ_c q_t k_s e^{G_t − G_s}  (s ≤ t)
+#   (I + β·Akk)·[w | u] = [β e^{G} k | β v]                 (unit lower triangular)
+#   v_new = u − w·S_n,  o = scale·(q e^{G}·S_n + Aqk·v_new)
+#   S_{n+1} = e^{G_C}·S_n + (k e^{G_C − G})ᵀ·v_new
+#
+# Chunked tensors are (B, H, N, C, D) f32, contiguous.  The pair blocks
+# (:func:`kda_pairs`) and the state pass (:func:`kda_state`) are the two
+# autograd functions with a kernel each way on GPUs; the rest of the
+# algorithm is batched PyTorch over every chunk at once (:func:`kda_chunk`).
+
+#: the chunk the KDA kernels take, and the head width (keys and values)
+KDA_CHUNK = 64
+KDA_HEAD_DIM = 128
+
+
+def _pair_decays(G: torch.Tensor) -> torch.Tensor:
+    """``e^{G_t − G_s}`` (..., t, s, c) for s ≤ t, 0 above the diagonal:
+    the exponent is masked before it is taken, so no positive one is."""
+    C = G.shape[-2]
+    diff = G[..., :, None, :] - G[..., None, :, :]
+    lower = torch.ones(C, C, dtype=torch.bool, device=G.device).tril()[:, :, None]
+    return torch.where(lower, diff, torch.full_like(diff, float("-inf"))).exp()
+
+
+def kda_pairs_ref(q: torch.Tensor, k: torch.Tensor, G: torch.Tensor) -> tuple:
+    """Plain version of the pair blocks: ``(akk, aqk)`` (B, H, N, C, C) f32,
+    ``akk[t, s] = Σ_c k_t k_s e^{G_t − G_s}`` below the diagonal and ``aqk[t,
+    s] = Σ_c q_t k_s e^{G_t − G_s}`` on and below it, zeros elsewhere."""
+    E = _pair_decays(G)
+    C = G.shape[-2]
+    strict = torch.ones(C, C, dtype=torch.bool, device=G.device).tril(-1)
+    ks = k[..., None, :, :] * E  # k_s e^{G_t − G_s}, (..., t, s, c)
+    akk = (k[..., :, None, :] * ks).sum(-1) * strict
+    aqk = (q[..., :, None, :] * ks).sum(-1)
+    return akk, aqk
+
+
+def kda_pairs_grads_ref(q: torch.Tensor, k: torch.Tensor, G: torch.Tensor,
+                        dakk: torch.Tensor, daqk: torch.Tensor) -> tuple:
+    """Plain version of the pair blocks' backward, in the kernel's closed
+    form: ``(dq, dk, dG)``.  Only dakk's strict lower triangle and daqk's
+    lower triangle are read.  Per channel, with a = dakk, b = daqk and E the
+    pair decays: R1 = (a∘E)·k, R2 = (b∘E)·k, Col = (a∘E)ᵀ·k + (b∘E)ᵀ·q;
+    dq = R2, dk = R1 + Col, dG = k·R1 + q·R2 − k·Col."""
+    C = G.shape[-2]
+    a = dakk * torch.ones(C, C, dtype=torch.bool, device=G.device).tril(-1)
+    b = daqk * torch.ones(C, C, dtype=torch.bool, device=G.device).tril()
+    E = _pair_decays(G)
+    aE, bE = a[..., None] * E, b[..., None] * E  # (..., t, s, c)
+    r1 = (aE * k[..., None, :, :]).sum(-2)
+    r2 = (bE * k[..., None, :, :]).sum(-2)
+    col = (aE * k[..., :, None, :] + bE * q[..., :, None, :]).sum(-3)
+    return r2, r1 + col, k * r1 + q * r2 - k * col
+
+
+def kda_state_ref(w: torch.Tensor, u: torch.Tensor, kd: torch.Tensor,
+                  gamma: torch.Tensor) -> tuple:
+    """Plain version of the state pass: ``(states (B, H, N + 1, Dk, Dv),
+    v_new (B, H, N, C, Dv))``, a loop over the chunks: states[n] = S_n (S₀ =
+    0), v_new[n] = u_n − w_n·S_n, S_{n+1} = gamma_n·S_n + kd_nᵀ·v_new_n."""
+    B, H, N, C, Dk = w.shape
+    S = w.new_zeros(B, H, Dk, u.shape[-1])
+    states, v_new = [S], []
+    for n in range(N):
+        x = u[:, :, n] - torch.matmul(w[:, :, n], S)
+        S = gamma[:, :, n, :, None] * S + torch.matmul(kd[:, :, n].transpose(-1, -2), x)
+        states.append(S)
+        v_new.append(x)
+    return torch.stack(states, 2), torch.stack(v_new, 2)
+
+
+def kda_state_reverse_ref(w: torch.Tensor, kd: torch.Tensor, gamma: torch.Tensor,
+                          gS: torch.Tensor, gv: torch.Tensor) -> tuple:
+    """Plain version of the backward kernel's reverse pass, for the
+    gradients ``gS`` (B, H, N + 1, Dk, Dv) of the states and ``gv`` of
+    v_new from outside: ``(dnext (B, H, N, Dk, Dv), dv (B, H, N, C, Dv))``,
+    dnext[n] the whole gradient of S_{n+1} and dv[n] that of v_new_n:
+    from D = gS[N] down, dv_n = gv_n + kd_n·D, dnext[n] = D, D = gamma_n·D +
+    gS[n] − w_nᵀ·dv_n."""
+    N = w.shape[2]
+    D = gS[:, :, N]
+    dnext, dv = [None] * N, [None] * N
+    for n in range(N - 1, -1, -1):
+        x = gv[:, :, n] + torch.matmul(kd[:, :, n], D)
+        dnext[n], dv[n] = D, x
+        D = gamma[:, :, n, :, None] * D + gS[:, :, n] - torch.matmul(w[:, :, n].transpose(-1, -2), x)
+    return torch.stack(dnext, 2), torch.stack(dv, 2)
+
+
+def kda_state_grads(states: torch.Tensor, v_new: torch.Tensor, dnext: torch.Tensor,
+                    dv: torch.Tensor) -> tuple:
+    """The state pass's input gradients ``(dw, du, dkd, dgamma)`` from the
+    reverse pass's ``dnext`` and ``dv``, batched over every chunk: du = dv,
+    dw = −dv·S_nᵀ, dkd = v_new·dnextᵀ, dgamma = Σ_j S_n ∘ dnext."""
+    S = states[:, :, :-1]
+    dw = -torch.matmul(dv, S.transpose(-1, -2))
+    dkd = torch.matmul(v_new, dnext.transpose(-1, -2))
+    return dw, dv, dkd, (S * dnext).sum(-1)
+
+
+def _check_kda(tensors: dict) -> torch.device:
+    """``tensors``: name → (tensor, the shape it must have); each contiguous
+    f32 on one CUDA device, 16-byte aligned."""
+    dev = next(iter(tensors.values()))[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"the KDA kernels run on CUDA devices, not {dev}; kda_pairs_ref and "
+                         "kda_state_ref are their plain versions")
+    for what, (t, shape) in tensors.items():
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"the KDA kernels take contiguous f32 tensors on {dev}, got {what} "
+                             f"{t.dtype} on {t.device}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what} must be {tuple(shape)} (chunk {KDA_CHUNK}, head width "
+                             f"{KDA_HEAD_DIM}), got {tuple(t.shape)}")
+        _check_card_tensor(t, what)
+    return dev
+
+
+def _kda_lead(x: torch.Tensor) -> tuple:
+    if x.dim() != 5 or x.shape[0] * x.shape[1] * x.shape[2] >= 2**31:
+        raise ValueError(f"the KDA kernels take (B, H, N, C, D) tensors with fewer than 2**31 "
+                         f"chunks, got {tuple(x.shape)}")
+    return tuple(x.shape[:3])
+
+
+def kda_pairs_forward(q: torch.Tensor, k: torch.Tensor, G: torch.Tensor) -> tuple:
+    """The pair blocks' kernel: :func:`kda_pairs_ref` as new tensors."""
+    B, H, N = _kda_lead(q)
+    rows = (B, H, N, KDA_CHUNK, KDA_HEAD_DIM)
+    dev = _check_kda({"q": (q, rows), "k": (k, rows), "G": (G, rows)})
+    akk = torch.empty((B, H, N, KDA_CHUNK, KDA_CHUNK), dtype=torch.float32, device=dev)
+    aqk = torch.empty_like(akk)
+    KDA_PAIRS_FWD.launch(dev, q.data_ptr(), k.data_ptr(), G.data_ptr(), akk.data_ptr(),
+                         aqk.data_ptr(), B * H * N)
+    return akk, aqk
+
+
+def kda_pairs_backward(q: torch.Tensor, k: torch.Tensor, G: torch.Tensor, dakk: torch.Tensor,
+                       daqk: torch.Tensor) -> tuple:
+    """The pair blocks' backward kernel: :func:`kda_pairs_grads_ref` as new
+    tensors."""
+    B, H, N = _kda_lead(q)
+    rows = (B, H, N, KDA_CHUNK, KDA_HEAD_DIM)
+    pairs = (B, H, N, KDA_CHUNK, KDA_CHUNK)
+    dev = _check_kda({"q": (q, rows), "k": (k, rows), "G": (G, rows), "dakk": (dakk, pairs),
+                      "daqk": (daqk, pairs)})
+    dq, dk, dG = torch.empty_like(q), torch.empty_like(k), torch.empty_like(G)
+    KDA_PAIRS_BWD.launch(dev, q.data_ptr(), k.data_ptr(), G.data_ptr(), dakk.data_ptr(),
+                         daqk.data_ptr(), dq.data_ptr(), dk.data_ptr(), dG.data_ptr(), B * H * N)
+    return dq, dk, dG
+
+
+def kda_state_forward(w: torch.Tensor, u: torch.Tensor, kd: torch.Tensor,
+                      gamma: torch.Tensor) -> tuple:
+    """The state pass's kernel: :func:`kda_state_ref` as new tensors."""
+    B, H, N = _kda_lead(w)
+    C, D = KDA_CHUNK, KDA_HEAD_DIM
+    rows = (B, H, N, C, D)
+    dev = _check_kda({"w": (w, rows), "u": (u, rows), "kd": (kd, rows),
+                      "gamma": (gamma, (B, H, N, D))})
+    states = torch.empty((B, H, N + 1, D, D), dtype=torch.float32, device=dev)
+    v_new = torch.empty_like(u)
+    KDA_STATE_FWD.launch(dev, w.data_ptr(), u.data_ptr(), kd.data_ptr(), gamma.data_ptr(),
+                         states.data_ptr(), v_new.data_ptr(), B * H, N)
+    return states, v_new
+
+
+def kda_state_backward(w: torch.Tensor, kd: torch.Tensor, gamma: torch.Tensor, gS: torch.Tensor,
+                       gv: torch.Tensor) -> tuple:
+    """The state pass's backward kernel: :func:`kda_state_reverse_ref` as new
+    tensors."""
+    B, H, N = _kda_lead(w)
+    C, D = KDA_CHUNK, KDA_HEAD_DIM
+    rows = (B, H, N, C, D)
+    dev = _check_kda({"w": (w, rows), "kd": (kd, rows), "gamma": (gamma, (B, H, N, D)),
+                      "gS": (gS, (B, H, N + 1, D, D)), "gv": (gv, rows)})
+    dnext = torch.empty((B, H, N, D, D), dtype=torch.float32, device=dev)
+    dv = torch.empty_like(gv)
+    KDA_STATE_BWD.launch(dev, w.data_ptr(), kd.data_ptr(), gamma.data_ptr(), gS.data_ptr(),
+                         gv.data_ptr(), dnext.data_ptr(), dv.data_ptr(), B * H, N)
+    return dnext, dv
+
+
+class _KDAPairs(torch.autograd.Function):
+    """The pair blocks, each direction a kernel on GPUs (the plain forward
+    and the closed-form backward on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, G):
+        ctx.save_for_backward(q, k, G)
+        return (kda_pairs_ref if _on_cpu(q) else kda_pairs_forward)(q, k, G)
+
+    @staticmethod
+    def backward(ctx, dakk, daqk):
+        q, k, G = ctx.saved_tensors
+        grad = kda_pairs_grads_ref if _on_cpu(q) else kda_pairs_backward
+        return grad(q, k, G, dakk.contiguous(), daqk.contiguous())
+
+
+class _KDAState(torch.autograd.Function):
+    """The state pass, each direction a kernel on GPUs (the plain loops on
+    CPU tensors); the backward's batched products in PyTorch.  It saves the
+    states and v_new: the backward reads S_n for dw and dgamma."""
+
+    @staticmethod
+    def forward(ctx, w, u, kd, gamma):
+        states, v_new = (kda_state_ref if _on_cpu(w) else kda_state_forward)(w, u, kd, gamma)
+        ctx.save_for_backward(w, kd, gamma, states, v_new)
+        return states, v_new
+
+    @staticmethod
+    def backward(ctx, gS, gv):
+        w, kd, gamma, states, v_new = ctx.saved_tensors
+        reverse = kda_state_reverse_ref if _on_cpu(w) else kda_state_backward
+        dnext, dv = reverse(w, kd, gamma, gS.contiguous(), gv.contiguous())
+        return kda_state_grads(states, v_new, dnext, dv)
+
+
+def kda_pairs(q: torch.Tensor, k: torch.Tensor, G: torch.Tensor) -> tuple:
+    """``(akk, aqk)`` of chunked q, k and cumulative log-decays G,
+    differentiable in all three: kernels on GPUs, plain versions on the CPU."""
+    return _KDAPairs.apply(q, k, G)
+
+
+def kda_state(w: torch.Tensor, u: torch.Tensor, kd: torch.Tensor, gamma: torch.Tensor) -> tuple:
+    """``(states, v_new)`` of the state pass, differentiable in its inputs:
+    kernels on GPUs, plain loops on the CPU."""
+    return _KDAState.apply(w, u, kd, gamma)
+
+
+def _chunked(x: torch.Tensor, N: int, C: int) -> torch.Tensor:
+    """(B, T, H, ...) → (B, H, N, C, ...) contiguous, zeros past T: one copy
+    (the padding of the head-major view)."""
+    B, T, H = x.shape[:3]
+    rest = tuple(x.shape[3:])
+    x = x.movedim(2, 1)  # (B, H, T, ...), a view
+    pad = [0, 0] * len(rest) + [0, N * C - T]
+    return F.pad(x, pad).contiguous().view(B, H, N, C, *rest)
+
+
+def kda_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+              beta: torch.Tensor, scale: float) -> tuple:
+    """The gated delta rule by chunks: ``(o (B, T, H, Dv), final state (B,
+    H, Dk, Dv))``, f32, from q and k (L2-normed), v, the log-decays g (B, T,
+    H, Dk) and the step sizes beta (B, T, H), all f32.  T is padded with
+    zeros to whole chunks (a zero β, k and g leave the state as it is).  On
+    GPUs the pair blocks and the state pass are kernels (chunk and widths
+    :data:`KDA_CHUNK`, :data:`KDA_HEAD_DIM`); everything else is products
+    and elementwise passes over every chunk at once, with no loop over
+    chunks.  On the CPU the same chain runs their plain versions."""
+    B, T, H, Dk = k.shape
+    Dv = v.shape[-1]
+    C = KDA_CHUNK
+    N = -(-T // C)
+    q, k, v, g = (_chunked(x, N, C) for x in (q, k, v, g))
+    beta = _chunked(beta, N, C)[..., None]
+    G = g.cumsum(-2)
+    akk, aqk = kda_pairs(q, k, G)
+    decay = G.exp()
+    rhs = torch.cat([k * decay * beta, v * beta], -1)
+    wu = torch.linalg.solve_triangular(akk * beta, rhs, upper=False, unitriangular=True)
+    w, u = wu.split([Dk, Dv], -1)
+    last = G[..., -1, :]
+    kd = k * (last[..., None, :] - G).exp()
+    states, v_new = kda_state(w.contiguous(), u.contiguous(), kd, last.exp().contiguous())
+    o = torch.matmul(q * decay, states[:, :, :N]) + torch.matmul(aqk, v_new)
+    o = (o * scale).movedim(1, 3).reshape(B, N * C, H, Dv)[:, :T]
+    return o, states[:, :, N]

@@ -10,9 +10,11 @@ achieved TFLOP/s ÷ n ÷ peak, and memory is that device's.
 
 Workload sizing comes from ``Config.extra`` with the reference's
 ``workload_*`` keys and defaults.  ``Config.workload_model`` chooses the
-model: the demo transformer, or DeepSeek-V2-Lite on one GPU
-(``models/deepseek_v2.py``, at the published widths; its ``workload_*``
-keys are ``deepseek_v2.config_from_extra``'s).
+model: the demo transformer, or on one GPU DeepSeek-V2-Lite
+(``deepseek-v2-lite``, ``models/deepseek_v2.py``) or Kimi-Linear
+(``kimi-linear``, ``models/kimi_linear.py``), each at its published widths
+(their ``workload_*`` keys are the sizes of its ``config_from_extra``:
+vocab, n_layers, seq, batch, experts_held).
 """
 
 from __future__ import annotations
@@ -49,13 +51,13 @@ class TorchWorkloadSource(MetricsSource):
         device: "torch.device | str | None" = None,
         devices: "list | None" = None,
     ):
-        from tpudash_torch.models import deepseek_v2
-        from tpudash_torch.models.runner import WorkloadRunner
+        from tpudash_torch.models.runner import ONE_GPU_MODELS, WorkloadRunner
         from tpudash_torch.models.workload import WorkloadConfig
 
         self.cfg = cfg
-        if cfg.workload_model == "deepseek-v2-lite":
-            wcfg = deepseek_v2.config_from_extra(cfg.extra)
+        one_gpu = {m.NAME: m for m in ONE_GPU_MODELS.values()}
+        if cfg.workload_model in one_gpu:
+            wcfg = one_gpu[cfg.workload_model].config_from_extra(cfg.extra)
         elif cfg.workload_model == "demo":
             wcfg = WorkloadConfig(
                 vocab=int(cfg.extra.get("workload_vocab", 2048)),
@@ -67,8 +69,8 @@ class TorchWorkloadSource(MetricsSource):
                 batch=int(cfg.extra.get("workload_batch", 16)),
             )
         else:
-            raise ValueError(f"workload_model {cfg.workload_model!r}: "
-                             "not 'demo' or 'deepseek-v2-lite'")
+            raise ValueError(f"workload_model {cfg.workload_model!r}: not one of "
+                             f"{['demo', *one_gpu]}")
         self.runner = WorkloadRunner(
             wcfg,
             steps_per_sync=int(cfg.extra.get("workload_steps_per_sync", 8)),
